@@ -1,0 +1,12 @@
+"""kzg_tpu_torch: the KZG polynomial commitment framework on PyTorch and
+hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+
+A port of `kzg_tpu` (JAX + Pallas on a TPU), module for module. It imports
+torch and never JAX, directly or through `kzg_tpu`: the host-only modules it
+needs (constants, oracle, native engine binding, serialization) are copies.
+Field elements are (W, *batch) int32 tensors of 32-bit Montgomery words
+(fields/limb.py); the four Pallas kernels of the coefficient-form main path
+are CUDA kernels in `csrc/`, built at first use (kernels.py).
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,128 @@
+"""Curve instances and host converters (port of `kzg_tpu/curve/__init__.py`).
+
+`G1` is the group law over `FP` whose batch point ops run as kernels K2-K4
+on CUDA tensors (and as their plain twins on CPU tensors); its remaining
+formulas (`madd`, `to_affine`, `eq`) are tensor code over K1 field math.
+G2 points are only stored and converted on the host in this slice: they are
+(X, Y, inf) with (12, 2, n) Fp2 coordinates, c0 then c1 on axis 1.
+"""
+
+import numpy as np
+import torch
+
+from ..constants import G1_GEN
+from ..fields import FP
+from . import cuda_ops
+from .ops import CurveOps
+
+
+class _G1(CurveOps):
+    """G1 with the point kernels behind add / dbl / bucket_accumulate /
+    window_join."""
+
+    def add(self, p, q):
+        return cuda_ops.add(p, q)
+
+    def dbl(self, p):
+        return cuda_ops.dbl(p)
+
+    def bucket_accumulate(self, rows, order, start, count):
+        return cuda_ops.bucket_accumulate(rows, order, start, count)
+
+    def window_join(self, s_all, c: int):
+        return cuda_ops.horner_join(s_all, c)
+
+
+G1 = _G1(FP, name="G1")
+
+
+def _tensor(words_np: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(words_np).to(device)
+
+
+# ---- host converters (oracle <-> device) ---------------------------------------
+
+def g1_to_device(points, device=None):
+    """List of oracle G1 points (None or (Fp, Fp)) -> Jacobian (X, Y, Z)
+    tensors with Z = 0 columns for infinity."""
+    xs, ys, zs = [], [], []
+    for p in points:
+        if p is None:
+            xs.append(1)
+            ys.append(1)
+            zs.append(0)
+        else:
+            xs.append(p[0].n)
+            ys.append(p[1].n)
+            zs.append(1)
+    return tuple(_tensor(FP.encode(v), device) for v in (xs, ys, zs))
+
+
+def _is_affine_triple(point, bdim: int) -> bool:
+    """Affine batches carry a boolean infinity mask as the third element;
+    Jacobian batches carry a Z field element (word axis present)."""
+    return point[2].dim() == point[0].dim() - bdim
+
+
+def g1_from_device(point):
+    """Batched device point -> list of oracle points. Accepts a Jacobian
+    (X, Y, Z) batch or an affine (x, y, inf_mask) batch."""
+    from ..oracle.field import Fp
+
+    if _is_affine_triple(point, 1):
+        x, y, inf = point
+    else:
+        x, y, inf = G1.to_affine(point)
+    xs = FP.decode(x)
+    ys = FP.decode(y)
+    infs = inf.reshape(-1).cpu().numpy()
+    return [None if i else (Fp(a), Fp(b)) for a, b, i in zip(xs, ys, infs)]
+
+
+def g2_to_device(points, device=None):
+    """List of oracle G2 points -> (X, Y, Z) of (12, 2, n) Fp2 words."""
+    cols = {k: [] for k in ("x0", "x1", "y0", "y1", "z0")}
+    for p in points:
+        if p is None:
+            vals = (1, 0, 1, 0, 0)
+        else:
+            vals = (p[0].a.n, p[0].b.n, p[1].a.n, p[1].b.n, 1)
+        for k, v in zip(cols, vals):
+            cols[k].append(v)
+    zero = [0] * len(points)
+
+    def fp2(c0, c1):
+        return _tensor(np.stack([FP.encode(c0), FP.encode(c1)], axis=1), device)
+
+    return (fp2(cols["x0"], cols["x1"]), fp2(cols["y0"], cols["y1"]), fp2(cols["z0"], zero))
+
+
+def g2_from_device(point):
+    """Affine (x, y, inf_mask) G2 batch of (12, 2, n) words -> oracle points.
+    (Jacobian G2 batches need Fp2 inversion, which belongs to the G2 slice.)"""
+    from ..oracle.field import Fp2
+
+    if not _is_affine_triple(point, 2):
+        raise NotImplementedError("g2_from_device takes affine (x, y, inf) batches")
+    x, y, inf = point
+    xc0, xc1 = FP.decode(x[:, 0]), FP.decode(x[:, 1])
+    yc0, yc1 = FP.decode(y[:, 0]), FP.decode(y[:, 1])
+    infs = inf.reshape(-1).cpu().numpy()
+    return [
+        None if i else (Fp2.from_ints(a0, a1), Fp2.from_ints(b0, b1))
+        for a0, a1, b0, b1, i in zip(xc0, xc1, yc0, yc1, infs)
+    ]
+
+
+def g1_generator_device(n: int = 1, device=None):
+    """(X, Y, Z) of n copies of the G1 generator."""
+    return tuple(
+        _tensor(FP.encode(v), device)
+        for v in ([G1_GEN[0]] * n, [G1_GEN[1]] * n, [1] * n)
+    )
+
+
+__all__ = [
+    "G1", "CurveOps", "g1_to_device", "g1_from_device", "g2_to_device",
+    "g2_from_device", "g1_generator_device",
+]

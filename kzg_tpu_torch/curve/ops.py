@@ -1,0 +1,182 @@
+"""Branch-free Jacobian group law for G1 over a field of packed words (port
+of `kzg_tpu/curve/ops.py`, G1 part).
+
+The formulas are ported verbatim (dbl-2009-l, add-2007-bl, madd-2007-bl,
+a = 0) with the same exceptional-case selects, so over the same field they
+give the JAX package's `CurveOps` outputs limb for limb. Points are
+(X, Y, Z) tuples of (W, *batch) tensors; Z == 0 encodes infinity, and
+infinity is written (1, 1, 0) in Montgomery form.
+
+`CurveOps` is generic over its field object: over `FP` its field math goes
+through kernel K1 on CUDA tensors; over `FP.as_plain()` it is the plain
+PyTorch twin of the point kernels (curve/cuda_ops.py).
+"""
+
+import torch
+
+
+class CurveOps:
+    """Jacobian group law on y^2 = x^3 + b over the field `f` (a LimbField)."""
+
+    def __init__(self, f, name="G1"):
+        self.f = f
+        self.name = name
+
+    # ---- constructors ----------------------------------------------------------
+
+    def infinity(self, batch_shape=(), device=None):
+        one = self.f.one(batch_shape, device)
+        return (one, one.clone(), self.f.zeros(batch_shape, device))
+
+    def from_affine(self, x, y):
+        return (x, y, self.f.one(x.shape[1:], x.device))
+
+    # ---- predicates ------------------------------------------------------------
+
+    def is_inf(self, p):
+        return self.f.is_zero(p[2])
+
+    def select(self, cond, p, q):
+        return tuple(torch.where(cond[None], a, b) for a, b in zip(p, q))
+
+    def eq(self, p, q):
+        """Projective equality with infinity handled."""
+        f = self.f
+        z1z1 = f.sqr(p[2])
+        z2z2 = f.sqr(q[2])
+        xe = f.eq(f.mul(p[0], z2z2), f.mul(q[0], z1z1))
+        ye = f.eq(f.mul(p[1], f.mul(q[2], z2z2)), f.mul(q[1], f.mul(p[2], z1z1)))
+        pi, qi = self.is_inf(p), self.is_inf(q)
+        return (pi & qi) | (~(pi ^ qi) & xe & ye)
+
+    # ---- group law -------------------------------------------------------------
+
+    def neg(self, p):
+        return (p[0], self.f.neg(p[1]), p[2])
+
+    def dbl(self, p):
+        """dbl-2009-l (a = 0): 2M + 5S."""
+        f = self.f
+        x, y, z = p
+        a = f.sqr(x)
+        b = f.sqr(y)
+        c = f.sqr(b)
+        t = f.sqr(f.add(x, b))
+        d = f.sub(f.sub(t, a), c)
+        d = f.add(d, d)
+        e = f.add(f.add(a, a), a)
+        ff = f.sqr(e)
+        x3 = f.sub(ff, f.add(d, d))
+        c8 = f.add(c, c)
+        c8 = f.add(c8, c8)
+        c8 = f.add(c8, c8)
+        y3 = f.sub(f.mul(e, f.sub(d, x3)), c8)
+        yz = f.mul(y, z)
+        z3 = f.add(yz, yz)
+        return (x3, y3, z3)
+
+    def add(self, p, q):
+        """add-2007-bl with full exceptional-case handling via selects."""
+        f = self.f
+        x1, y1, z1 = p
+        x2, y2, z2 = q
+        z1z1 = f.sqr(z1)
+        z2z2 = f.sqr(z2)
+        u1 = f.mul(x1, z2z2)
+        u2 = f.mul(x2, z1z1)
+        s1 = f.mul(y1, f.mul(z2, z2z2))
+        s2 = f.mul(y2, f.mul(z1, z1z1))
+        h = f.sub(u2, u1)
+        i = f.sqr(f.add(h, h))
+        j = f.mul(h, i)
+        r = f.sub(s2, s1)
+        r = f.add(r, r)
+        v = f.mul(u1, i)
+        x3 = f.sub(f.sub(f.sqr(r), j), f.add(v, v))
+        s1j = f.mul(s1, j)
+        y3 = f.sub(f.mul(r, f.sub(v, x3)), f.add(s1j, s1j))
+        zz = f.sub(f.sub(f.sqr(f.add(z1, z2)), z1z1), z2z2)
+        z3 = f.mul(zz, h)
+        out = (x3, y3, z3)
+        h0 = f.is_zero(h)
+        r0 = f.is_zero(r)
+        same = h0 & r0
+        opposite = h0 & ~r0
+        if bool(same.any()):  # rare: compute the doubling only when needed
+            out = self.select(same, self.dbl(p), out)
+        out = self.select(opposite, self.infinity(h0.shape, h0.device), out)
+        out = self.select(self.is_inf(q), p, out)
+        out = self.select(self.is_inf(p), q, out)
+        return out
+
+    def madd(self, p, q_affine, q_inf):
+        """Mixed add (q affine with an explicit infinity/skip mask):
+        madd-2007-bl, 7M + 4S."""
+        f = self.f
+        x1, y1, z1 = p
+        x2, y2 = q_affine
+        z1z1 = f.sqr(z1)
+        u2 = f.mul(x2, z1z1)
+        s2 = f.mul(y2, f.mul(z1, z1z1))
+        h = f.sub(u2, x1)
+        hh = f.sqr(h)
+        i = f.add(hh, hh)
+        i = f.add(i, i)
+        j = f.mul(h, i)
+        r = f.sub(s2, y1)
+        r = f.add(r, r)
+        v = f.mul(x1, i)
+        x3 = f.sub(f.sub(f.sqr(r), j), f.add(v, v))
+        y1j = f.mul(y1, j)
+        y3 = f.sub(f.mul(r, f.sub(v, x3)), f.add(y1j, y1j))
+        z3 = f.sub(f.sub(f.sqr(f.add(z1, h)), z1z1), hh)
+        out = (x3, y3, z3)
+        h0 = f.is_zero(h)
+        r0 = f.is_zero(r)
+        same = h0 & r0
+        opposite = h0 & ~r0
+        if bool(same.any()):
+            out = self.select(same, self.dbl(p), out)
+        out = self.select(opposite, self.infinity(h0.shape, h0.device), out)
+        q_jac = (x2, y2, f.one(h0.shape, h0.device))
+        out = self.select(self.is_inf(p), q_jac, out)
+        out = self.select(q_inf, p, out)
+        return out
+
+    # ---- scalar multiplication and joins -----------------------------------------
+
+    def scalar_mul_bits(self, p, bits):
+        """p * k where bits is (nbits, *batch) of 0/1 (LSB first):
+        double-and-add, batched over points."""
+        acc = self.infinity(bits.shape[1:], bits.device)
+        base = p
+        for i in range(bits.shape[0]):
+            acc = self.select(bits[i] != 0, self.add(acc, base), acc)
+            base = self.dbl(base)
+        return acc
+
+    def window_join(self, s_all, c: int):
+        """Pippenger Horner join sum_w 2^(c*w) * s_all[..., w] over the last
+        axis -> batch-() point: per window, MSB first, c doublings (infinity
+        kept fixed, as the Pallas `horner_join` does) then one full add."""
+        w_count = s_all[0].shape[-1]
+        acc = self.infinity((), s_all[0].device)
+        for i in range(w_count):
+            for _ in range(c):
+                acc = self.select(self.is_inf(acc), acc, self.dbl(acc))
+            acc = self.add(acc, tuple(t[..., w_count - 1 - i] for t in s_all))
+        return acc
+
+    # ---- affine conversion ---------------------------------------------------------
+
+    def to_affine(self, p):
+        """Batch normalise: returns (x, y, inf_mask)."""
+        f = self.f
+        x, y, z = p
+        inf = self.is_inf(p)
+        zsafe = torch.where(inf[None], f.one(inf.shape, z.device), z)
+        flat = zsafe.reshape(f.W, -1)
+        zinv = f.batch_inv(flat).reshape(zsafe.shape)
+        zi2 = f.sqr(zinv)
+        zi3 = f.mul(zinv, zi2)
+        return (f.mul(x, zi2), f.mul(y, zi3), inf)

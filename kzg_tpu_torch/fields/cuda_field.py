@@ -1,0 +1,209 @@
+"""Kernel K1: elementwise Montgomery field arithmetic, and its plain twin.
+
+Replaces the Pallas elementwise field kernels `FieldKernels.try_binary` /
+`try_mul_const` (`kzg_tpu/fields/pallas_field.py:433,442`, launched by
+`_run_elementwise`, `:273-305`), which serve `LimbField.add/sub/mul/sqr/
+mul_const/to_mont/from_mont` (`kzg_tpu/fields/limb.py:188-287`).
+
+CUDA side (`csrc/field_kernels.cu`, arithmetic in `csrc/field.cuh`): one
+thread per element, the 8 (Fr) or 12 (Fp) 32-bit words of each operand in
+registers, CIOS Montgomery multiplication with 64-bit products and one
+conditional subtraction into [0, p). Bound on the H100: integer multiply
+throughput for `mul` (a 12-word product is 288 32x32->64 multiply-adds),
+device-memory bytes for `add`/`sub` (3 x 48 B per Fp element, ~10 integer
+ops per word). Limb-major `(W, n)` layout makes every word load and store
+coalesced: thread i touches word l at `l * n + i`.
+
+Plain twin (`binary_plain`, `mul_const_plain`): the same function in
+PyTorch integer ops. It unpacks each 32-bit word into two 16-bit limbs held
+in int64 (16x16-bit products and their column sums stay far below 2^63;
+torch has no usable uint32 arithmetic), runs the same Montgomery
+algorithm one 16-bit digit at a time, and repacks. Both produce the
+canonical Montgomery integers, so they agree bit for bit.
+
+`binary` / `mul_const` are the wrappers: a CPU tensor takes the plain twin,
+a CUDA tensor launches K1 (or raises), any other device raises.
+"""
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .. import kernels
+
+_K1 = kernels.REGISTRY["field_elementwise"]
+
+ADD, SUB, MUL = 0, 1, 2
+_MASK16 = 0xFFFF
+
+
+# ---- packed-word layout (see fields/limb.py) --------------------------------
+
+def unpack16(words: torch.Tensor) -> torch.Tensor:
+    """(W, *batch) int32 packed words -> (2W, *batch) int64 16-bit limbs.
+    Goes through int64 with a 32-bit mask: an arithmetic shift of an int32
+    word >= 2^31 would sign-extend into the high limb."""
+    w = words.to(torch.int64) & 0xFFFFFFFF
+    return torch.stack([w & _MASK16, w >> 16], dim=1).reshape(
+        (2 * words.shape[0],) + tuple(words.shape[1:])
+    )
+
+
+def pack16(limbs: torch.Tensor) -> torch.Tensor:
+    """(2W, *batch) int64 limbs in [0, 2^16) -> (W, *batch) int32 words
+    (values >= 2^31 wrap to the negative int32 with the same bits)."""
+    v = limbs[0::2] | (limbs[1::2] << 16)
+    return torch.where(v >= (1 << 31), v - (1 << 32), v).to(torch.int32)
+
+
+def _limbs_const(words_np: np.ndarray, device) -> torch.Tensor:
+    """(W,) host words -> (2W, 1) int64 limb column on `device`."""
+    t = torch.from_numpy(np.ascontiguousarray(words_np, dtype=np.int32))
+    return unpack16(t.to(device)).reshape(-1, 1)
+
+
+# ---- plain twin: 16-bit digits in int64 --------------------------------------
+
+def _normalize(d: torch.Tensor):
+    """Exact carry resolution of signed int64 digit rows: returns (limbs in
+    [0, 2^16), carry out of the top limb). Vector passes move every carry
+    one limb up; the loop ends when no digit is out of range."""
+    d = d.clone()
+    top = torch.zeros_like(d[0])
+    while True:
+        hi = d >> 16  # arithmetic shift = floor division, also for negatives
+        if not bool(hi.any()):
+            return d, top
+        d &= _MASK16
+        d[1:] += hi[:-1]
+        top += hi[-1]
+
+
+def _reduce_once(t: torch.Tensor, carry: torch.Tensor, mod: torch.Tensor):
+    """(t + carry * 2^(16L)) - mod when that is >= 0, else t; t normalised,
+    the value below 2 * mod."""
+    d, borrow = _normalize(t - mod)
+    return torch.where(((borrow + carry) >= 0)[None], d, t)
+
+
+def _add16(a, b, mod):
+    s, carry = _normalize(a + b)
+    return _reduce_once(s, carry, mod)
+
+
+def _sub16(a, b, mod):
+    d, borrow = _normalize(a - b)
+    plus, _ = _normalize(d + mod)
+    return torch.where((borrow < 0)[None], plus, d)
+
+
+def _mont_mul16(a, b, mod, nprime16: int):
+    """Montgomery product a * b * 2^(-16L) mod p, operand scanning over
+    16-bit digits with lazy carries (each row of `t` is one digit position;
+    a row's digit may exceed 2^16 until the final normalisation)."""
+    L = a.shape[0]
+    t = torch.zeros((2 * L,) + tuple(a.shape[1:]), dtype=torch.int64, device=a.device)
+    for i in range(L):
+        win = t[i:i + L]
+        win.addcmul_(a[i], b)
+        m = ((t[i] & _MASK16) * nprime16) & _MASK16
+        win.addcmul_(m, mod)
+        t[i + 1] += t[i] >> 16  # row i is now 0 mod 2^16
+    hi, carry = _normalize(t[L:])
+    return _reduce_once(hi, carry, mod)
+
+
+def _flat(x: torch.Tensor, W: int) -> torch.Tensor:
+    return x.reshape(W, -1)
+
+
+def binary_plain(field, op: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch twin of K1 on any device: add / sub / mul of packed
+    (W, *batch) int32 tensors (broadcast against each other)."""
+    a, b = torch.broadcast_tensors(a, b)
+    shape = a.shape
+    x = unpack16(_flat(a, field.W))
+    y = unpack16(_flat(b, field.W))
+    mod = _limbs_const(field.mod_words, a.device)
+    if op == ADD:
+        r = _add16(x, y, mod)
+    elif op == SUB:
+        r = _sub16(x, y, mod)
+    elif op == MUL:
+        r = _mont_mul16(x, y, mod, field.nprime16)
+    else:
+        raise ValueError(f"bad op {op}")
+    return pack16(r).reshape(shape)
+
+
+def mul_const_plain(field, a: torch.Tensor, c_words: np.ndarray) -> torch.Tensor:
+    """Plain twin of K1's multiply-by-constant (`c_words`: (W,) host words)."""
+    c = torch.from_numpy(np.ascontiguousarray(c_words, dtype=np.int32)).to(a.device)
+    return binary_plain(field, MUL, a, c.reshape((field.W,) + (1,) * (a.dim() - 1)))
+
+
+# ---- K1 wrappers -------------------------------------------------------------
+
+def _check_operand(field, x: torch.Tensor, device):
+    if x.dtype != torch.int32:
+        raise kernels.KernelError(f"{field.name}: expected int32 words, got {x.dtype}")
+    if x.dim() < 1 or x.shape[0] != field.W:
+        raise kernels.KernelError(
+            f"{field.name}: expected ({field.W}, ...) words, got {tuple(x.shape)}"
+        )
+    if x.device != device:
+        raise kernels.KernelError(f"{field.name}: operands on {x.device} and {device}")
+
+
+def _device_kind(x: torch.Tensor) -> str:
+    kind = x.device.type
+    if kind not in ("cpu", "cuda"):
+        raise kernels.KernelError(f"no field kernel for device {x.device}")
+    return kind
+
+
+def binary(field, op: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K1 add / sub / mul: the plain twin for CPU tensors, the CUDA kernel
+    for CUDA tensors."""
+    a, b = torch.broadcast_tensors(a, b)
+    if _device_kind(a) == "cpu":
+        return binary_plain(field, op, a, b)
+    _check_operand(field, a, a.device)
+    _check_operand(field, b, a.device)
+    a = a.contiguous()
+    b = b.contiguous()
+    out = torch.empty_like(a)
+    n = a.numel() // field.W
+    if n == 0:
+        return out
+    rc = kernels.library().kzg_field_binary(
+        field.kernel_id, op, out.data_ptr(), a.data_ptr(), b.data_ptr(), n,
+        kernels.stream_handle(a.device),
+    )
+    kernels.check_status(rc, f"{field.name} elementwise op {op}")
+    _K1.launches += 1
+    return out
+
+
+def mul_const(field, a: torch.Tensor, c_words: np.ndarray) -> torch.Tensor:
+    """K1 Montgomery multiply by a (W,) host constant (mul_const, to_mont,
+    from_mont). The constant travels as a kernel argument, by value."""
+    if _device_kind(a) == "cpu":
+        return mul_const_plain(field, a, c_words)
+    _check_operand(field, a, a.device)
+    a = a.contiguous()
+    out = torch.empty_like(a)
+    n = a.numel() // field.W
+    if n == 0:
+        return out
+    c = np.ascontiguousarray(c_words, dtype=np.uint32)
+    if c.shape != (field.W,):
+        raise kernels.KernelError(f"{field.name}: constant must be ({field.W},) words")
+    rc = kernels.library().kzg_field_mul_const(
+        field.kernel_id, out.data_ptr(), a.data_ptr(),
+        c.ctypes.data_as(ctypes.c_void_p), n, kernels.stream_handle(a.device),
+    )
+    kernels.check_status(rc, f"{field.name} mul_const")
+    _K1.launches += 1
+    return out

@@ -1,0 +1,158 @@
+"""Build, load and account for the port's hand-written CUDA kernels.
+
+All kernels live in `kzg_tpu_torch/csrc/` and are compiled by `nvcc` for
+`sm_90a` into ONE shared library with a plain C interface, loaded through
+`ctypes` (no PyTorch headers, so the build takes seconds). The build runs at
+first use, into `build/kzg_tpu_torch/<hash of sources and flags>/`, so a
+changed source never loads a stale library. Nothing here runs at import
+time: the CPU tests import every module of the port.
+
+Each kernel is described by a `Kernel` record in `REGISTRY`: its C entry
+point, its source, the Pallas kernel it replaces, and `launches`, the count
+its wrapper increments each time it launches the kernel on the card.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from dataclasses import dataclass
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG.parent / "build" / "kzg_tpu_torch"
+SOURCES = ("field_kernels.cu", "point_kernels.cu")
+HEADERS = ("field.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+LIB_NAME = "libkzg_tpu_torch_kernels.so"
+
+
+class KernelError(RuntimeError):
+    """A kernel failed to build, was given tensors it does not take, or
+    returned a non-zero CUDA status from its launch."""
+
+
+@dataclass
+class Kernel:
+    name: str          # report name
+    source: str        # repo path of the CUDA source
+    replaces: str      # file:line of the Pallas kernel it replaces
+    launches: int = 0  # launches on the card since the last reset
+
+
+REGISTRY = {
+    k.name: k
+    for k in (
+        Kernel("field_elementwise", "kzg_tpu_torch/csrc/field_kernels.cu",
+               "kzg_tpu/fields/pallas_field.py:273"),
+        Kernel("g1_add", "kzg_tpu_torch/csrc/point_kernels.cu",
+               "kzg_tpu/curve/pallas_ops.py:712"),
+        Kernel("g1_dbl", "kzg_tpu_torch/csrc/point_kernels.cu",
+               "kzg_tpu/curve/pallas_ops.py:707"),
+        Kernel("bucket_accumulate", "kzg_tpu_torch/csrc/point_kernels.cu",
+               "kzg_tpu/curve/pallas_ops.py:388"),
+        Kernel("horner_join", "kzg_tpu_torch/csrc/point_kernels.cu",
+               "kzg_tpu/curve/pallas_ops.py:590"),
+    )
+}
+
+
+def reset_launches():
+    for k in REGISTRY.values():
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: k.launches for name, k in REGISTRY.items()}
+
+
+def _nvcc() -> str:
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+            return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise KernelError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    return found
+
+
+def source_digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels unless this exact source set is already built.
+    Returns the library path; the compiler's `-Xptxas -v` report (registers,
+    spills) is kept beside it as `ptxas.log`."""
+    out_dir = BUILD_ROOT / source_digest()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    (out_dir / "ptxas.log").write_text(res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise KernelError(
+            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stdout}{res.stderr}"
+        )
+    os.replace(tmp, lib)  # atomic: a concurrent process never loads half a file
+    return lib
+
+
+_lib = None
+_lib_lock = threading.Lock()
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_N = ctypes.c_longlong
+_SIGNATURES = {
+    # (field, op, out, a, b, n, stream)
+    "kzg_field_binary": (_I, _I, _P, _P, _P, _N, _P),
+    # (field, out, a, const words on the host, n, stream)
+    "kzg_field_mul_const": (_I, _P, _P, _P, _N, _P),
+    # (ox, oy, oz, x1, y1, z1, x2, y2, z2, n, stream)
+    "kzg_g1_add": (_P,) * 9 + (_N, _P),
+    # (ox, oy, oz, x, y, z, n, stream)
+    "kzg_g1_dbl": (_P,) * 6 + (_N, _P),
+    # (ox, oy, oz, rows, order, start, count, windows, buckets, n, stream)
+    "kzg_g1_bucket_accumulate": (_P,) * 7 + (_I, _I, _N, _P),
+    # (ox, oy, oz, sx, sy, sz, windows, c, stream)
+    "kzg_g1_horner_join": (_P,) * 6 + (_I, _I, _P),
+}
+
+
+def library():
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for fn, argtypes in _SIGNATURES.items():
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def stream_handle(device):
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def check_status(rc: int, what: str):
+    if rc != 0:
+        raise KernelError(f"{what}: CUDA launch status {rc}")

@@ -1,0 +1,121 @@
+"""Port protocol layer (kzg_tpu_torch.kzg, plain kernel twins on CPU).
+
+  * carry-across: an SRS built by the JAX package's host setup and saved
+    with its KZGParams.save loads into the port's KZGParams.load word for
+    word, and equals the port's own setup;
+  * the coeff_2e10 golden vector of tests/vectors.json: commitment and
+    witness bytes, verify_eval accepts, and rejects a tampered y;
+    verify_poly accepts the commitment;
+  * csprng_setup yields a power ladder (checked with one pairing).
+Tolerance 0 throughout.
+"""
+
+import json
+import os
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from kzg_tpu.kzg import srs as jsrs
+from kzg_tpu_torch.constants import R
+from kzg_tpu_torch.curve import G1, g1_from_device, g2_from_device
+from kzg_tpu_torch.fields.limb import unpack16
+from kzg_tpu_torch.hostcrypto import multi_pairing_check
+from kzg_tpu_torch.kzg import KZGParams, KZGProver, KZGVerifier, PointNotOnPolynomial
+from kzg_tpu_torch.kzg.coeff_form import g1_compressed
+from kzg_tpu_torch.kzg.srs import csprng_setup, setup
+from kzg_tpu_torch.oracle import ec_neg, g1_generator, g2_generator
+from kzg_tpu_torch.poly import Polynomial
+
+VEC = json.load(open(os.path.join(os.path.dirname(__file__), "vectors.json")))
+SECRET = int(VEC["secret"], 16)
+GOLD = VEC["configs"]["coeff_2e10"]
+
+
+@pytest.fixture(scope="module")
+def jax_params_file(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("srs") / "jax_srs.npz")
+    jsrs._setup_host(SECRET, GOLD["n"]).save(path)
+    return path
+
+
+@pytest.fixture(scope="module")
+def params(jax_params_file):
+    return KZGParams.load(jax_params_file)
+
+
+@pytest.fixture(scope="module")
+def golden():
+    rng = random.Random(VEC["seed"])
+    coeffs = [rng.randrange(R) for _ in range(GOLD["n"])]
+    x = rng.randrange(R)
+    assert hex(x) == GOLD["open_x"]
+    y = 0
+    for c in reversed(coeffs):
+        y = (y * x + c) % R
+    assert hex(y) == GOLD["open_y"]
+    return Polynomial.from_ints(coeffs), x, y
+
+
+def test_srs_carries_across_from_jax(jax_params_file, params, tmp_path):
+    z = np.load(jax_params_file)
+    for port, key in ((params.gs[0], "g_x"), (params.gs[1], "g_y"),
+                      (params.hs[0], "h_x"), (params.hs[1], "h_y")):
+        np.testing.assert_array_equal(unpack16(port).numpy().astype(np.uint32), z[key])
+    np.testing.assert_array_equal(params.gs[2].numpy(), z["g_i"])
+    np.testing.assert_array_equal(params.hs[2].numpy(), z["h_i"])
+    assert params.n == int(z["n"])
+    # the port's own setup builds the same SRS, and its save round-trips
+    own = setup(SECRET, GOLD["n"])
+    for a, b in zip(own.gs + own.hs, params.gs + params.hs):
+        assert torch.equal(a, b)
+    own.save(str(tmp_path / "port_srs"))
+    again = KZGParams.load(str(tmp_path / "port_srs"))
+    for a, b in zip(again.gs + again.hs, params.gs + params.hs):
+        assert torch.equal(a, b)
+
+
+def test_golden_coeff_2e10(params, golden):
+    poly, x, y = golden
+    prover = KZGProver(params)
+    commitment = prover.commit(poly)
+    assert g1_compressed(commitment).hex() == GOLD["commit"]
+    witness = prover.create_witness(poly, (x, y))
+    assert g1_compressed(witness).hex() == GOLD["witness"]
+    verifier = KZGVerifier(params)
+    assert verifier.verify_eval((x, y), commitment, witness)
+    assert not verifier.verify_eval((x, (y + 1) % R), commitment, witness)
+    with pytest.raises(PointNotOnPolynomial):
+        prover.create_witness(poly, (x, (y + 1) % R))
+    assert verifier.verify_poly(commitment, poly)
+    assert not bool(G1.eq(commitment, witness))
+
+
+def test_csprng_setup_is_a_power_ladder():
+    params = csprng_setup(3)
+    g = g1_from_device(params.gs)
+    h = g2_from_device(params.hs)
+    assert params.n == 3 and g[0] == g1_generator() and h[0] == g2_generator()
+    # e(g^(s^2), h) == e(g^s, h^s) without knowing s
+    assert multi_pairing_check([(g[2], h[0]), (ec_neg(g[1]), h[1])])
+
+
+def test_eval_and_division_against_host_ints():
+    rs = np.random.default_rng(21)
+    coeffs = [int.from_bytes(rs.bytes(32), "little") % R for _ in range(37)]
+    poly = Polynomial.from_ints(coeffs)
+    for x in (0, 1, int.from_bytes(rs.bytes(32), "little") % R):
+        y = 0
+        for c in reversed(coeffs):
+            y = (y * x + c) % R
+        assert poly.eval(x) == y
+        q, rem = poly.div_by_linear(x)
+        assert rem == y
+        # synthetic division on host ints
+        want, acc = [], 0
+        for c in reversed(coeffs[1:]):
+            acc = (acc * x + c) % R
+            want.append(acc)
+        assert q.to_ints() == want[::-1]
