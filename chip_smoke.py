@@ -5,20 +5,36 @@
 Phases, each printed with its result and wall time; any failure exits
 non-zero before the result line:
   1. device   - a CUDA card is required; prints its name and power limit;
-  2. build    - compiles the port's kernels (nvcc, sm_90a) from the sources;
+  2. build    - compiles the port's kernels (nvcc, sm_90a) from the sources,
+                one nvcc per source, all started together;
   3. kernels  - every kernel against its plain PyTorch twin on the card, at
                 main-path shapes, exact equality (all of it is integer math):
                 K1 field ops at 2^15 (Fr and Fp, edges 0, 1, p-1), K2 add/dbl
                 on 2^12 points (infinity, P+P, P+(-P) lanes), K3 one 2^15
-                MSM's buckets at c = 10, K4 the window join of those buckets;
+                MSM's buckets at c = 10, K4 the window join of those buckets,
+                K5 every stage of a 2^20 NTT in the Pease layout and in the
+                four-step layout, and the whole 2^20 NTT against the
+                domain's plain twin, G2 add/dbl on 2^12 points (special
+                lanes as K2);
   4. golden   - the coeff_2e10 vector of tests/vectors.json: setup, commit,
                 witness bytes, verify accepts, tampered y rejected;
   5. 2^15     - setup (host engine; cached under build/kzg_tpu_torch/),
                 commit of a seeded random polynomial checked against the
                 native engine's MSM, witness, verify, tampered y rejected;
-  6. counts   - kernel launch counts of phases 4-5, each must be > 0.
-The last lines are the kernel report, the nvidia-smi line, and
-{"ok": true, "device": {...}}.
+  6. counts   - kernel launch counts of phases 4-5 (reset just before
+                phase 4), K1-K4 must each be > 0;
+  7. golden   - the batched_2e8_k16 vector: commit, batched witness, h^Z
+                (G2) and g^r bytes, verify_eval_batched accepts;
+  8. batched  - 2^15 coefficients opened at k = 16 points on the 2^15 SRS:
+                commit, create_witness_batched, verify_eval_batched
+                accepts, other xs rejected;
+  9. coset    - the batched quotient's coset division alone at 2^20: a
+                seeded numerator f - r divided by a 16-point Z, q Z ==
+                numerator checked at two random points with host ints;
+ 10. counts   - launch counts of phases 7-9 (reset just before phase 7),
+                every kernel must be > 0.
+The last lines are the kernel report (launches of both counted runs), the
+nvidia-smi line, and {"ok": true, "device": {...}}.
 """
 
 import hashlib
@@ -35,6 +51,8 @@ SEED = 20260401
 N_MAIN = 1 << 15
 C_MAIN = 10
 N_POINT = 1 << 12
+K_BATCH = 16
+EXP_COSET = 20
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -84,6 +102,36 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def horner(coeffs, x, mod):
+    y = 0
+    for c in reversed(coeffs):
+        y = (y * x + c) % mod
+    return y
+
+
+def random_fr_words(gen, shape, dev):
+    """Uniform-ish Fr elements as (8, *shape) Montgomery words drawn on the
+    card: seven free words and a top word below R's, so each is < R."""
+    from kzg_tpu_torch.constants import R
+
+    low = torch.randint(-(1 << 31), 1 << 31, (7,) + shape, generator=gen, device=dev,
+                        dtype=torch.int64)
+    top = torch.randint(0, R >> 224, (1,) + shape, generator=gen, device=dev,
+                        dtype=torch.int64)
+    return torch.cat([low, top]).to(torch.int32)
+
+
+def random_fp2(gen, n, dev):
+    """n nonzero-with-overwhelming-probability Fp2 elements, (12, 2, n)
+    Montgomery words: eleven free words and a top word below P's."""
+    from kzg_tpu_torch.constants import P
+
+    low = torch.randint(-(1 << 31), 1 << 31, (11, 2, n), generator=gen, device=dev,
+                        dtype=torch.int64)
+    top = torch.randint(0, P >> 352, (1, 2, n), generator=gen, device=dev, dtype=torch.int64)
+    return torch.cat([low, top]).to(torch.int32)
+
+
 def max_abs_diff(a, b):
     a = a if isinstance(a, (tuple, list)) else (a,)
     b = b if isinstance(b, (tuple, list)) else (b,)
@@ -101,13 +149,16 @@ def main() -> int:
 
     from kzg_tpu_torch import kernels, native
     from kzg_tpu_torch.constants import P, R
-    from kzg_tpu_torch.curve import G1, cuda_ops, g1_from_device
+    from kzg_tpu_torch.curve import G1, G2, cuda_ops, g1_from_device
     from kzg_tpu_torch.fields import FP, FR
     from kzg_tpu_torch.fields import cuda_field
-    from kzg_tpu_torch.kzg.coeff_form import KZGProver, KZGVerifier, g1_compressed
+    from kzg_tpu_torch.kzg.coeff_form import (
+        KZGProver, KZGVerifier, g1_compressed, g2_compressed,
+    )
     from kzg_tpu_torch.kzg.srs import KZGParams, setup
-    from kzg_tpu_torch.msm import pippenger
-    from kzg_tpu_torch.poly import Polynomial
+    from kzg_tpu_torch.msm import msm_g1, msm_g2, pippenger
+    from kzg_tpu_torch.ntt import Domain
+    from kzg_tpu_torch.poly import Polynomial, lagrange_interpolation, vanishing_poly
 
     dev = torch.device("cuda", 0)
     report = {}
@@ -270,6 +321,92 @@ def main() -> int:
         want_pt = native.g1_msm(pts_host, scal_ints)
         check(g1_from_device(tuple(t[..., None] for t in got))[0] == want_pt,
               "K3 + K2 + K4 MSM equals the native engine's")
+
+        # K5: every stage of one 2^20 NTT, in the Pease layout (bt = 1, the
+        # 2^20 half table) and in the four-step layout (two passes of
+        # 2^10-point transforms over 2^10-lane rows), then the whole NTT
+        dom20 = Domain(EXP_COSET)
+        d20 = dom20.d
+        x20 = random_fr_words(torch.Generator(device=dev).manual_seed(SEED), (d20,), dev)
+        tw_pease = torch.from_numpy(Domain._powers(dom20.omega, d20 // 2)).to(dev)
+        sub = Domain(EXP_COSET // 2)
+        tw_fs = torch.from_numpy(Domain._powers(sub.omega, sub.d // 2)).to(dev)
+        k5_err = 0
+        stage_ms = {}
+        for layout, x, tw in (("Pease", x20.reshape(FR.W, 1, d20, 1), tw_pease),
+                              ("four-step", x20.reshape(FR.W, 1, sub.d, d20 // sub.d), tw_fs)):
+            kms, pms = [], []
+            for st in range(x.shape[2].bit_length() - 1):
+                got = cuda_field.ntt_stage(x, tw, st)
+                want = cuda_field.ntt_stage_layout_plain(x, tw, st)
+                k5_err = max(k5_err, max_abs_diff(got, want))
+                kms.append(cuda_ms(lambda: cuda_field.ntt_stage(x, tw, st), 10))
+                pms.append(cuda_ms(lambda: cuda_field.ntt_stage_layout_plain(x, tw, st), 1))
+                x = got
+            stage_ms[layout] = (sum(kms) / len(kms), sum(pms) / len(pms), len(kms))
+            check(k5_err == 0,
+                  f"K5 {layout} layout, all {len(kms)} stages of 2^{EXP_COSET} equal plain")
+            log(f"  K5 {layout} 2^{EXP_COSET} stage mean: kernel {stage_ms[layout][0]:.4f} ms, "
+                f"plain {stage_ms[layout][1]:.4f} ms [{card}]")
+        got = dom20.ntt(x20)
+        want = dom20.as_plain().ntt(x20)
+        k5_err = max(k5_err, max_abs_diff(got, want))
+        check(k5_err == 0, f"NTT 2^{EXP_COSET} (four-step, split tables) equals the plain twin")
+        got_c = dom20.coset_intt(dom20.coset_ntt(x20))
+        check(torch.equal(got_c, x20), f"coset_intt(coset_ntt(x)) == x at 2^{EXP_COSET}")
+        ntt_ms = cuda_ms(lambda: dom20.ntt(x20), 5)
+        ntt_plain_ms = cuda_ms(lambda: dom20.as_plain().ntt(x20), 1)
+        log(f"  NTT 2^{EXP_COSET}: kernel {ntt_ms:.4f} ms, plain twin {ntt_plain_ms:.2f} ms "
+            f"[{card}]")
+        kinfo["ntt_stage"].update(max_abs_err=k5_err, ms=stage_ms["four-step"][0],
+                                  plain_ms=stage_ms["four-step"][1])
+        report.update(ntt_2e20_ms=ntt_ms, ntt_2e20_plain_ms=ntt_plain_ms)
+
+        # G2 add / dbl: SRS G2 points at random Fp2 Z, special lanes as K2
+        f2 = cuda_ops.PLAIN2.f
+        hx, hy, _ = params.hs
+
+        def jacobian2(x, y, gen):
+            z = random_fp2(gen, x.shape[-1], dev)
+            z2 = f2.sqr(z)
+            return (f2.mul(x, z2), f2.mul(y, f2.mul(z2, z)), z)
+
+        gen2 = torch.Generator(device=dev).manual_seed(SEED + 2)
+        p2 = tuple(t.clone() for t in jacobian2(hx[..., :n], hy[..., :n], gen2))
+        q2 = tuple(t.clone() for t in jacobian2(hx[..., n:2 * n], hy[..., n:2 * n], gen2))
+        lam = random_fp2(gen2, 1, dev)[..., 0]
+        lam2 = f2.sqr(lam)
+        p2[2][..., 0] = 0
+        q2[2][..., 1] = 0
+        p2[2][..., 2] = 0
+        q2[2][..., 2] = 0
+        q2[0][..., 3] = f2.mul(p2[0][..., 3], lam2)
+        q2[1][..., 3] = f2.mul(p2[1][..., 3], f2.mul(lam2, lam))
+        q2[2][..., 3] = f2.mul(p2[2][..., 3], lam)
+        q2[0][..., 4] = p2[0][..., 4]
+        q2[1][..., 4] = f2.neg(p2[1][..., 4])
+        q2[2][..., 4] = p2[2][..., 4]
+        for i in range(3):
+            q2[i][..., 5] = p2[i][..., 5]
+        got = cuda_ops.g2_add(p2, q2)
+        want = cuda_ops.g2_add_plain(p2, q2)
+        err = max_abs_diff(got, want)
+        check(err == 0, "G2 add 2^12 (inf, P+P, P-P lanes) equals plain")
+        check(bool(G2.is_inf(got)[4]) and not bool(G2.is_inf(got)[3]),
+              "G2 add: P + (-P) is infinity, P + P is not")
+        kinfo["g2_add"].update(
+            max_abs_err=err,
+            ms=cuda_ms(lambda: cuda_ops.g2_add(p2, q2), 10),
+            plain_ms=cuda_ms(lambda: cuda_ops.g2_add_plain(p2, q2), 1),
+        )
+        got = cuda_ops.g2_dbl(p2)
+        err = max_abs_diff(got, cuda_ops.g2_dbl_plain(p2))
+        check(err == 0, "G2 dbl 2^12 equals plain")
+        kinfo["g2_dbl"].update(
+            max_abs_err=err,
+            ms=cuda_ms(lambda: cuda_ops.g2_dbl(p2), 10),
+            plain_ms=cuda_ms(lambda: cuda_ops.g2_dbl_plain(p2), 1),
+        )
         for k, v in kinfo.items():
             log(f"  {k}: kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.2f} ms [{card}]")
 
@@ -283,9 +420,7 @@ def main() -> int:
         coeffs = [grng.randrange(R) for _ in range(v["n"])]
         x = grng.randrange(R)
         check(hex(x) == v["open_x"], "seed stream reproduces open_x")
-        y = 0
-        for c in reversed(coeffs):
-            y = (y * x + c) % R
+        y = horner(coeffs, x, R)
         gparams = setup(int(vec["secret"], 16), v["n"], device=dev)
         prover = KZGProver(gparams)
         poly = Polynomial.from_ints(coeffs, device=dev)
@@ -316,9 +451,7 @@ def main() -> int:
         check(g1_from_device(tuple(t[..., None] for t in commitment))[0] == want_pt,
               "2^15 commitment equals native.g1_msm (affine)")
         x = rng.randrange(R)
-        y = 0
-        for c in reversed(coeffs):
-            y = (y * x + c) % R
+        y = horner(coeffs, x, R)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         witness = prover.create_witness(poly, (x, y))
@@ -338,12 +471,100 @@ def main() -> int:
         report.update(commit_s=commit_s, witness_s=witness_s, verify_s=verify_s,
                       points_per_s=N_MAIN / commit_s)
 
-    # ---- 6. launch counts of the main path ------------------------------------------------------
-    with phase("launch counts"):
-        counts = kernels.launch_counts()
-        log(f"  {counts}")
-        for k, n_launch in counts.items():
-            check(n_launch > 0, f"{k} launched {n_launch} times on the main path")
+    # ---- 6. launch counts of the single-opening path ---------------------------------------------
+    with phase("launch counts 4-5"):
+        counts_single = kernels.launch_counts()
+        log(f"  {counts_single}")
+        for k in ("field_elementwise", "g1_add", "g1_dbl", "bucket_accumulate", "horner_join"):
+            check(counts_single[k] > 0,
+                  f"{k} launched {counts_single[k]} times on the single-opening path")
+
+    # ---- 7-9. the batched opening, counted --------------------------------------------------------
+    kernels.reset_launches()
+
+    with phase("golden batched_2e8_k16"):
+        bv = vec["configs"]["batched_2e8_k16"]
+        grng = random.Random(vec["seed"])
+        for _ in range(v["n"] + 1):  # the generator consumed coeff_2e10 first
+            grng.randrange(R)
+        coeffs = [grng.randrange(R) for _ in range(bv["n"])]
+        xs = [grng.randrange(R) for _ in range(bv["k"])]
+        check([hex(x) for x in xs] == bv["xs"], "seed stream reproduces xs")
+        ys = [horner(coeffs, x, R) for x in xs]
+        bparams = setup(int(vec["secret"], 16), bv["n"], device=dev)
+        prover = KZGProver(bparams)
+        poly = Polynomial.from_ints(coeffs, device=dev)
+        commitment = prover.commit(poly)
+        check(g1_compressed(commitment).hex() == bv["commit"], "commitment bytes")
+        bw = prover.create_witness_batched(poly, xs, ys)
+        check(g1_compressed(bw.w).hex() == bv["witness"], "batched witness bytes")
+        z = vanishing_poly(torch.from_numpy(FR.encode(xs)).to(dev))
+        hz = msm_g2(tuple(t[..., : z.num_coeffs()] for t in bparams.hs), z.trimmed())
+        check(g2_compressed(hz).hex() == bv["h_z"], "h^Z bytes (G2 ladder MSM)")
+        gr = msm_g1(tuple(t[..., : bw.r.num_coeffs()] for t in bparams.gs), bw.r.trimmed())
+        check(g1_compressed(gr).hex() == bv["g_r"], "g^r bytes")
+        check(KZGVerifier(bparams).verify_eval_batched(commitment, bw, xs),
+              "verify_eval_batched accepts")
+
+    with phase(f"batched 2^15, k = {K_BATCH}"):
+        coeffs = [rng.randrange(R) for _ in range(N_MAIN)]
+        poly = Polynomial.from_ints(coeffs, device=dev)
+        xs = [rng.randrange(R) for _ in range(K_BATCH)]
+        ys = [horner(coeffs, x, R) for x in xs]
+        prover = KZGProver(params)
+        commitment = prover.commit(poly)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bw = prover.create_witness_batched(poly, xs, ys)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        bwitness_s = sorted(times)[1]
+        verifier = KZGVerifier(params)
+        t0 = time.perf_counter()
+        ok = verifier.verify_eval_batched(commitment, bw, xs)
+        bverify_s = time.perf_counter() - t0
+        check(ok, "2^15, k = 16 verify_eval_batched accepts")
+        other = list(xs)
+        other[0] = (other[0] + 1) % R
+        check(not verifier.verify_eval_batched(commitment, bw, other),
+              "2^15, k = 16 verify_eval_batched rejects other xs")
+        log(f"  batched 2^15, k = {K_BATCH}: witness {bwitness_s:.4f} s "
+            f"(runs {', '.join(f'{t:.4f}' for t in times)}), verify {bverify_s:.4f} s [{card}]")
+        report.update(batched_witness_s=bwitness_s, batched_verify_s=bverify_s)
+
+    with phase(f"coset division 2^{EXP_COSET}"):
+        n = 1 << EXP_COSET
+        gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+        poly = Polynomial(random_fr_words(gen, (n,), dev))
+        xs = [rng.randrange(R) for _ in range(K_BATCH)]
+        xs_d = torch.from_numpy(FR.encode(xs)).to(dev)
+        numerator = poly - lagrange_interpolation(xs_d, poly.eval_many(xs_d))
+        z = vanishing_poly(xs_d)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q = KZGProver._exact_div(numerator, z, xs_int=xs)
+        torch.cuda.synchronize()
+        div_s = time.perf_counter() - t0
+        check(q.num_coeffs() == n - K_BATCH, f"quotient has {n - K_BATCH} coefficients")
+        num_ints = numerator.to_ints()
+        q_ints = q.to_ints()
+        z_ints = z.to_ints()
+        for t in (rng.randrange(R), rng.randrange(R)):
+            check(horner(q_ints, t, R) * horner(z_ints, t, R) % R == horner(num_ints, t, R),
+                  "q(t) Z(t) == numerator(t) at a random t (host ints)")
+        log(f"  coset division 2^{EXP_COSET} (k = {K_BATCH}) {div_s:.4f} s; NTT 2^{EXP_COSET} "
+            f"kernel {ntt_ms:.4f} ms, plain twin {ntt_plain_ms:.2f} ms [{card}]")
+        report.update(coset_div_2e20_s=div_s)
+
+    # ---- 10. launch counts of the batched path ---------------------------------------------------
+    with phase("launch counts 7-9"):
+        counts_batched = kernels.launch_counts()
+        log(f"  {counts_batched}")
+        for k, n_launch in counts_batched.items():
+            check(n_launch > 0, f"{k} launched {n_launch} times on the batched path")
+        counts = {k: counts_single[k] + counts_batched[k] for k in counts_batched}
 
     kreport = {"kernels": [
         {
@@ -358,7 +579,7 @@ def main() -> int:
         }
         for k in kernels.REGISTRY.values()
     ]}
-    log("main path 2^15: " + ", ".join(f"{k} {v}" for k, v in report.items()) + f" [{card}]")
+    log("main paths: " + ", ".join(f"{k} {v}" for k, v in report.items()) + f" [{card}]")
     log(json.dumps(kreport))
     log(smi)
     log(json.dumps({"ok": True, "device": {

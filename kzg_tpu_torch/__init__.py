@@ -5,8 +5,9 @@ A port of `kzg_tpu` (JAX + Pallas on a TPU), module for module. It imports
 torch and never JAX, directly or through `kzg_tpu`: the host-only modules it
 needs (constants, oracle, native engine binding, serialization) are copies.
 Field elements are (W, *batch) int32 tensors of 32-bit Montgomery words
-(fields/limb.py); the four Pallas kernels of the coefficient-form main path
-are CUDA kernels in `csrc/`, built at first use (kernels.py).
+(fields/limb.py); the Pallas kernels of the ported paths (the single and
+batched coefficient-form openings) are CUDA kernels in `csrc/`, built at
+first use (kernels.py).
 """
 
 __version__ = "0.1.0"

@@ -1,8 +1,9 @@
 """Typed runtime configuration of the port: the knobs its main path reads.
 
 The JAX package's config (`kzg_tpu/config.py`) also carries the Mosaic
-kernel-shape knobs, the NTT, eval-form and mesh settings; none of those is
-read by this slice, so none is copied.
+kernel-shape knobs, the MXU NTT switch (`ntt_mxu`, off by default there and
+not ported), the eval-form and mesh settings; none of those is read by the
+port yet, so none is copied.
 
 Usage:
     from kzg_tpu_torch.config import get_config, configure
@@ -24,6 +25,15 @@ class KZGConfig:
     # "auto"/"host": native C++ pairing engine (oracle if it is missing);
     # "oracle": the pure-Python pairing
     pairing_engine: str = "auto"
+    # domains of size >= 2^this use the four-step (Bailey) NTT
+    # (ntt.domain.Domain._ntt_four_step); tests lower it to reach that path
+    ntt_four_step_min_exp: int = 16
+    # quotient length above which long division switches from the
+    # schoolbook loop to Newton-inverse division (poly.newton)
+    newton_div_threshold: int = 32
+    # point count at which SubProductTree.eval_points switches from direct
+    # evaluation to the remainder tree
+    tree_eval_threshold: int = 64
 
     def validate(self):
         if self.pairing_engine not in ("auto", "host", "oracle"):
@@ -34,6 +44,10 @@ class KZGConfig:
             raise ValueError("msm_window must be in [1, 16]")
         if self.small_msm_threshold < 1:
             raise ValueError("small_msm_threshold must be >= 1")
+        if self.ntt_four_step_min_exp < 2:
+            raise ValueError("ntt_four_step_min_exp must be >= 2")
+        if self.newton_div_threshold < 0 or self.tree_eval_threshold < 1:
+            raise ValueError("newton_div_threshold must be >= 0, tree_eval_threshold >= 1")
         return self
 
 

@@ -199,4 +199,52 @@ __device__ __forceinline__ Fe<F> fe_sqr(const Fe<F>& a) {
   return fe_mul<F>(a, a);
 }
 
+// Fp2 = Fp[u] / (u^2 + 1), c0 + c1 u, the algebra of `PallasFp2Ops`
+// (kzg_tpu/fields/pallas_field.py:192-242) and `Fp2Adapter`
+// (kzg_tpu/curve/ops.py:70-137): Karatsuba multiplication (3 Fp
+// multiplications) and the (a + b)(a - b) square (2). Each component is
+// canonical, so results equal the plain twin's word for word.
+//
+// Device layout (12, 2, n): word l of component c of element i at
+// `(2 l + c) n + i`, i.e. one (12, n) plane per component with stride 2n.
+struct Fp2E {
+  Fe<Fp> c0, c1;
+};
+
+__device__ __forceinline__ Fp2E fp2_load(const uint32_t* __restrict__ base, long long n,
+                                         long long i) {
+  return Fp2E{fe_load<Fp>(base, 2 * n, i), fe_load<Fp>(base + n, 2 * n, i)};
+}
+
+__device__ __forceinline__ void fp2_store(uint32_t* __restrict__ base, long long n,
+                                          long long i, const Fp2E& x) {
+  fe_store<Fp>(base, 2 * n, i, x.c0);
+  fe_store<Fp>(base + n, 2 * n, i, x.c1);
+}
+
+__device__ __forceinline__ Fp2E fp2_add(const Fp2E& a, const Fp2E& b) {
+  return Fp2E{fe_add<Fp>(a.c0, b.c0), fe_add<Fp>(a.c1, b.c1)};
+}
+
+__device__ __forceinline__ Fp2E fp2_sub(const Fp2E& a, const Fp2E& b) {
+  return Fp2E{fe_sub<Fp>(a.c0, b.c0), fe_sub<Fp>(a.c1, b.c1)};
+}
+
+__device__ __forceinline__ Fp2E fp2_mul(const Fp2E& x, const Fp2E& y) {
+  const Fe<Fp> ac = fe_mul<Fp>(x.c0, y.c0);
+  const Fe<Fp> bd = fe_mul<Fp>(x.c1, y.c1);
+  const Fe<Fp> t = fe_mul<Fp>(fe_add<Fp>(x.c0, x.c1), fe_add<Fp>(y.c0, y.c1));
+  return Fp2E{fe_sub<Fp>(ac, bd), fe_sub<Fp>(fe_sub<Fp>(t, ac), bd)};
+}
+
+__device__ __forceinline__ Fp2E fp2_sqr(const Fp2E& x) {
+  const Fe<Fp> re = fe_mul<Fp>(fe_add<Fp>(x.c0, x.c1), fe_sub<Fp>(x.c0, x.c1));
+  const Fe<Fp> ab = fe_mul<Fp>(x.c0, x.c1);
+  return Fp2E{re, fe_add<Fp>(ab, ab)};
+}
+
+__device__ __forceinline__ bool fp2_is_zero(const Fp2E& a) {
+  return fe_is_zero<Fp>(a.c0) && fe_is_zero<Fp>(a.c1);
+}
+
 }  // namespace kzg

@@ -1,18 +1,23 @@
-// Kernels K2-K4: G1 point arithmetic of the Pippenger MSM.
+// Kernels K2-K4: the point arithmetic of the Pippenger MSM, G1 and G2.
 //
-// Group law over Fp (field.cuh), Jacobian (X, Y, Z) with Z == 0 for
-// infinity, written (1, 1, 0) in Montgomery form. The formulas and the
-// exceptional-case handling are those of the Pallas kernels
+// Group law over Fp (G1) and Fp2 (G2) (field.cuh), Jacobian (X, Y, Z) with
+// Z == 0 for infinity, written (1, 1, 0) in Montgomery form. The formulas
+// and the exceptional-case handling are those of the Pallas kernels
 // (kzg_tpu/curve/pallas_ops.py:81-196) and of `CurveOps`
 // (kzg_tpu/curve/ops.py:195-283): dbl-2009-l, add-2007-bl, madd-2007-bl
-// with a = 0. Every field value is canonical, so outputs equal the plain
-// PyTorch twin (kzg_tpu_torch/curve/ops.py) word for word.
+// with a = 0, which never reference the curve's b, so one template over the
+// coordinate type serves both groups. Every field value is canonical, so
+// outputs equal the plain PyTorch twin (kzg_tpu_torch/curve/ops.py) word
+// for word.
 //
 // K2  kzg_g1_add / kzg_g1_dbl     replaces _PointKernels.add / .dbl
-//     (pallas_ops.py:712,707). One thread per point. Bound by Fp
-//     multiplications (add: 11M + 5S) and registers (two input points and
-//     the formula's temporaries); the rare doubling inside add is a
-//     per-thread branch instead of the TPU's whole-tile `lax.cond`.
+//     kzg_g2_add / kzg_g2_dbl     (pallas_ops.py:712,707; ncomp=1 and 2).
+//     One thread per point. Bound by field multiplications (add: 11M + 5S,
+//     an Fp2 M being 3 Fp M) and registers (two input points and the
+//     formula's temporaries: a G2 point is 72 words, so the G2 entries
+//     spill to local memory); the rare doubling inside add is a per-thread
+//     branch instead of the TPU's whole-tile `lax.cond`. G2 coordinates are
+//     (12, 2, n) words, c0 then c1 on axis 1.
 // K3  kzg_g1_bucket_accumulate    replaces _PointKernels.bucket_accumulate
 //     (pallas_ops.py:388). One launch for all windows, one thread per
 //     (window, bucket): the thread walks its run of the window's stable
@@ -44,11 +49,9 @@ using namespace kzg;
 namespace {
 
 using FpE = Fe<Fp>;
-constexpr int kW = Fp::N;  // 12 words per coordinate
+constexpr int kW = Fp::N;  // 12 words per Fp coordinate
 
-struct Jac {
-  FpE x, y, z;
-};
+// ---- coordinate arithmetic, overloaded for Fp (G1) and Fp2 (G2) ----------
 
 __device__ __forceinline__ FpE add(const FpE& a, const FpE& b) { return fe_add<Fp>(a, b); }
 __device__ __forceinline__ FpE sub(const FpE& a, const FpE& b) { return fe_sub<Fp>(a, b); }
@@ -56,43 +59,85 @@ __device__ __forceinline__ FpE mul(const FpE& a, const FpE& b) { return fe_mul<F
 __device__ __forceinline__ FpE sqr(const FpE& a) { return fe_mul<Fp>(a, a); }
 __device__ __forceinline__ bool is_zero(const FpE& a) { return fe_is_zero<Fp>(a); }
 
-__device__ __forceinline__ Jac infinity() {
-  return Jac{fe_one<Fp>(), fe_one<Fp>(), fe_zero<Fp>()};
+__device__ __forceinline__ Fp2E add(const Fp2E& a, const Fp2E& b) { return fp2_add(a, b); }
+__device__ __forceinline__ Fp2E sub(const Fp2E& a, const Fp2E& b) { return fp2_sub(a, b); }
+__device__ __forceinline__ Fp2E mul(const Fp2E& a, const Fp2E& b) { return fp2_mul(a, b); }
+__device__ __forceinline__ Fp2E sqr(const Fp2E& a) { return fp2_sqr(a); }
+__device__ __forceinline__ bool is_zero(const Fp2E& a) { return fp2_is_zero(a); }
+
+// constants and the (12, n) / (12, 2, n) device layouts of one coordinate
+template <class E>
+struct Coord;
+
+template <>
+struct Coord<FpE> {
+  __device__ static __forceinline__ FpE one() { return fe_one<Fp>(); }
+  __device__ static __forceinline__ FpE zero() { return fe_zero<Fp>(); }
+  __device__ static __forceinline__ FpE load(const uint32_t* b, long long n, long long i) {
+    return fe_load<Fp>(b, n, i);
+  }
+  __device__ static __forceinline__ void store(uint32_t* b, long long n, long long i,
+                                               const FpE& x) {
+    fe_store<Fp>(b, n, i, x);
+  }
+};
+
+template <>
+struct Coord<Fp2E> {
+  __device__ static __forceinline__ Fp2E one() { return Fp2E{fe_one<Fp>(), fe_zero<Fp>()}; }
+  __device__ static __forceinline__ Fp2E zero() { return Fp2E{fe_zero<Fp>(), fe_zero<Fp>()}; }
+  __device__ static __forceinline__ Fp2E load(const uint32_t* b, long long n, long long i) {
+    return fp2_load(b, n, i);
+  }
+  __device__ static __forceinline__ void store(uint32_t* b, long long n, long long i,
+                                               const Fp2E& x) {
+    fp2_store(b, n, i, x);
+  }
+};
+
+template <class E>
+struct Jac {
+  E x, y, z;
+};
+
+template <class E>
+__device__ __forceinline__ Jac<E> infinity() {
+  return Jac<E>{Coord<E>::one(), Coord<E>::one(), Coord<E>::zero()};
 }
 
-__device__ __forceinline__ Jac load_point(const uint32_t* x, const uint32_t* y,
-                                          const uint32_t* z, long long stride,
-                                          long long i) {
-  return Jac{fe_load<Fp>(x, stride, i), fe_load<Fp>(y, stride, i),
-             fe_load<Fp>(z, stride, i)};
+template <class E>
+__device__ __forceinline__ Jac<E> load_point(const uint32_t* x, const uint32_t* y,
+                                             const uint32_t* z, long long n, long long i) {
+  return Jac<E>{Coord<E>::load(x, n, i), Coord<E>::load(y, n, i), Coord<E>::load(z, n, i)};
 }
 
+template <class E>
 __device__ __forceinline__ void store_point(uint32_t* x, uint32_t* y, uint32_t* z,
-                                            long long stride, long long i,
-                                            const Jac& p) {
-  fe_store<Fp>(x, stride, i, p.x);
-  fe_store<Fp>(y, stride, i, p.y);
-  fe_store<Fp>(z, stride, i, p.z);
+                                            long long n, long long i, const Jac<E>& p) {
+  Coord<E>::store(x, n, i, p.x);
+  Coord<E>::store(y, n, i, p.y);
+  Coord<E>::store(z, n, i, p.z);
 }
 
 // dbl-2009-l (a = 0): 2M + 5S. Out of line: it is the rare branch of add
 // and madd, and inlining it there would double their code.
-__device__ __noinline__ Jac dbl(const Jac& p) {
-  const FpE a = sqr(p.x);
-  const FpE b = sqr(p.y);
-  const FpE c = sqr(b);
-  const FpE t = sqr(add(p.x, b));
-  FpE d = sub(sub(t, a), c);
+template <class E>
+__device__ __noinline__ Jac<E> dbl(const Jac<E>& p) {
+  const E a = sqr(p.x);
+  const E b = sqr(p.y);
+  const E c = sqr(b);
+  const E t = sqr(add(p.x, b));
+  E d = sub(sub(t, a), c);
   d = add(d, d);
-  const FpE e = add(add(a, a), a);
-  const FpE ff = sqr(e);
-  Jac out;
+  const E e = add(add(a, a), a);
+  const E ff = sqr(e);
+  Jac<E> out;
   out.x = sub(ff, add(d, d));
-  FpE c8 = add(c, c);
+  E c8 = add(c, c);
   c8 = add(c8, c8);
   c8 = add(c8, c8);
   out.y = sub(mul(e, sub(d, out.x)), c8);
-  const FpE yz = mul(p.y, p.z);
+  const E yz = mul(p.y, p.z);
   out.z = add(yz, yz);
   return out;
 }
@@ -100,78 +145,80 @@ __device__ __noinline__ Jac dbl(const Jac& p) {
 // add-2007-bl with the exceptional cases of pallas_ops.py:158-196:
 // P == Q -> dbl(P); P == -Q -> infinity; an infinite operand passes the
 // other one through.
-__device__ __forceinline__ Jac add_pts(const Jac& p, const Jac& q) {
-  const FpE z1z1 = sqr(p.z);
-  const FpE z2z2 = sqr(q.z);
-  const FpE u1 = mul(p.x, z2z2);
-  const FpE u2 = mul(q.x, z1z1);
-  const FpE s1 = mul(p.y, mul(q.z, z2z2));
-  const FpE s2 = mul(q.y, mul(p.z, z1z1));
-  const FpE h = sub(u2, u1);
-  const FpE i = sqr(add(h, h));
-  const FpE j = mul(h, i);
-  FpE r = sub(s2, s1);
+template <class E>
+__device__ __forceinline__ Jac<E> add_pts(const Jac<E>& p, const Jac<E>& q) {
+  const E z1z1 = sqr(p.z);
+  const E z2z2 = sqr(q.z);
+  const E u1 = mul(p.x, z2z2);
+  const E u2 = mul(q.x, z1z1);
+  const E s1 = mul(p.y, mul(q.z, z2z2));
+  const E s2 = mul(q.y, mul(p.z, z1z1));
+  const E h = sub(u2, u1);
+  const E i = sqr(add(h, h));
+  const E j = mul(h, i);
+  E r = sub(s2, s1);
   r = add(r, r);
-  const FpE v = mul(u1, i);
-  Jac out;
+  const E v = mul(u1, i);
+  Jac<E> out;
   out.x = sub(sub(sqr(r), j), add(v, v));
-  const FpE s1j = mul(s1, j);
+  const E s1j = mul(s1, j);
   out.y = sub(mul(r, sub(v, out.x)), add(s1j, s1j));
-  const FpE zz = sub(sub(sqr(add(p.z, q.z)), z1z1), z2z2);
+  const E zz = sub(sub(sqr(add(p.z, q.z)), z1z1), z2z2);
   out.z = mul(zz, h);
   if (is_zero(p.z)) return q;
   if (is_zero(q.z)) return p;
-  if (is_zero(h)) return is_zero(r) ? dbl(p) : infinity();
+  if (is_zero(h)) return is_zero(r) ? dbl(p) : infinity<E>();
   return out;
 }
 
 // madd-2007-bl: Jacobian p + affine (x2, y2), with the exceptional cases
 // of pallas_ops.py:122-156 for a live lane (p infinite -> (x2, y2, 1)).
-__device__ __forceinline__ Jac madd(const Jac& p, const FpE& x2, const FpE& y2) {
-  const FpE z1z1 = sqr(p.z);
-  const FpE u2 = mul(x2, z1z1);
-  const FpE s2 = mul(y2, mul(p.z, z1z1));
-  const FpE h = sub(u2, p.x);
-  const FpE hh = sqr(h);
-  FpE i = add(hh, hh);
+template <class E>
+__device__ __forceinline__ Jac<E> madd(const Jac<E>& p, const E& x2, const E& y2) {
+  const E z1z1 = sqr(p.z);
+  const E u2 = mul(x2, z1z1);
+  const E s2 = mul(y2, mul(p.z, z1z1));
+  const E h = sub(u2, p.x);
+  const E hh = sqr(h);
+  E i = add(hh, hh);
   i = add(i, i);
-  const FpE j = mul(h, i);
-  FpE r = sub(s2, p.y);
+  const E j = mul(h, i);
+  E r = sub(s2, p.y);
   r = add(r, r);
-  const FpE v = mul(p.x, i);
-  Jac out;
+  const E v = mul(p.x, i);
+  Jac<E> out;
   out.x = sub(sub(sqr(r), j), add(v, v));
-  const FpE y1j = mul(p.y, j);
+  const E y1j = mul(p.y, j);
   out.y = sub(mul(r, sub(v, out.x)), add(y1j, y1j));
   out.z = sub(sub(sqr(add(p.z, h)), z1z1), hh);
-  if (is_zero(p.z)) return Jac{x2, y2, fe_one<Fp>()};
-  if (is_zero(h)) return is_zero(r) ? dbl(p) : infinity();
+  if (is_zero(p.z)) return Jac<E>{x2, y2, Coord<E>::one()};
+  if (is_zero(h)) return is_zero(r) ? dbl(p) : infinity<E>();
   return out;
 }
 
 constexpr int kPointThreads = 128;
 
+template <class E>
 __global__ void __launch_bounds__(kPointThreads)
-g1_add_kernel(uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
-              uint32_t* __restrict__ oz, const uint32_t* __restrict__ x1,
-              const uint32_t* __restrict__ y1, const uint32_t* __restrict__ z1,
-              const uint32_t* __restrict__ x2, const uint32_t* __restrict__ y2,
-              const uint32_t* __restrict__ z2, long long n) {
+add_kernel(uint32_t* __restrict__ ox, uint32_t* __restrict__ oy, uint32_t* __restrict__ oz,
+           const uint32_t* __restrict__ x1, const uint32_t* __restrict__ y1,
+           const uint32_t* __restrict__ z1, const uint32_t* __restrict__ x2,
+           const uint32_t* __restrict__ y2, const uint32_t* __restrict__ z2, long long n) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const Jac p = load_point(x1, y1, z1, n, i);
-  const Jac q = load_point(x2, y2, z2, n, i);
-  store_point(ox, oy, oz, n, i, add_pts(p, q));
+  const Jac<E> p = load_point<E>(x1, y1, z1, n, i);
+  const Jac<E> q = load_point<E>(x2, y2, z2, n, i);
+  store_point<E>(ox, oy, oz, n, i, add_pts(p, q));
 }
 
+template <class E>
 __global__ void __launch_bounds__(kPointThreads)
-g1_dbl_kernel(uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
-              uint32_t* __restrict__ oz, const uint32_t* __restrict__ x,
-              const uint32_t* __restrict__ y, const uint32_t* __restrict__ z,
-              long long n) {
+dbl_kernel(uint32_t* __restrict__ ox, uint32_t* __restrict__ oy, uint32_t* __restrict__ oz,
+           const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
+           const uint32_t* __restrict__ z, long long n) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  store_point(ox, oy, oz, n, i, dbl(load_point(x, y, z, n, i)));
+  store_point<E>(ox, oy, oz, n, i, dbl(load_point<E>(x, y, z, n, i)));
 }
 
 // rows: (n, 24) words, point k's x then y; order: (W, n) sort order per
@@ -189,7 +236,7 @@ bucket_accumulate_kernel(uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
   const int32_t* ord = order + (t / buckets) * n;
   const int s = start[t];
   const int c = count[t];
-  Jac acc = infinity();
+  Jac<FpE> acc = infinity<FpE>();
   for (int k = 0; k < c; k++) {
     const uint4* row = reinterpret_cast<const uint4*>(rows + (long long)ord[s + k] * (2 * kW));
     FpE q[2];
@@ -204,7 +251,7 @@ bucket_accumulate_kernel(uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
     }
     acc = madd(acc, q[0], q[1]);
   }
-  store_point(ox, oy, oz, total, t, acc);
+  store_point<FpE>(ox, oy, oz, total, t, acc);
 }
 
 // s*: (12, W) window sums; out: (12,) one point
@@ -214,29 +261,25 @@ __global__ void horner_join_kernel(uint32_t* __restrict__ ox, uint32_t* __restri
                                    const uint32_t* __restrict__ sy,
                                    const uint32_t* __restrict__ sz, int windows, int c) {
   if (blockIdx.x != 0 || threadIdx.x != 0) return;
-  Jac acc = infinity();
+  Jac<FpE> acc = infinity<FpE>();
   for (int i = windows - 1; i >= 0; i--) {
     for (int k = 0; k < c; k++) {
       if (!is_zero(acc.z)) acc = dbl(acc);  // keep infinity fixed
     }
-    acc = add_pts(acc, load_point(sx, sy, sz, windows, i));
+    acc = add_pts(acc, load_point<FpE>(sx, sy, sz, windows, i));
   }
-  store_point(ox, oy, oz, 1, 0, acc);
+  store_point<FpE>(ox, oy, oz, 1, 0, acc);
 }
 
 inline unsigned blocks_for(long long n) {
   return (unsigned)((n + kPointThreads - 1) / kPointThreads);
 }
 
-}  // namespace
-
-extern "C" {
-
-int kzg_g1_add(void* ox, void* oy, void* oz, const void* x1, const void* y1,
-               const void* z1, const void* x2, const void* y2, const void* z2,
-               long long n, void* stream) {
+template <class E>
+int launch_add(void* ox, void* oy, void* oz, const void* x1, const void* y1, const void* z1,
+               const void* x2, const void* y2, const void* z2, long long n, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
-  g1_add_kernel<<<blocks_for(n), kPointThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  add_kernel<E><<<blocks_for(n), kPointThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint32_t*>(ox), static_cast<uint32_t*>(oy), static_cast<uint32_t*>(oz),
       static_cast<const uint32_t*>(x1), static_cast<const uint32_t*>(y1),
       static_cast<const uint32_t*>(z1), static_cast<const uint32_t*>(x2),
@@ -244,14 +287,43 @@ int kzg_g1_add(void* ox, void* oy, void* oz, const void* x1, const void* y1,
   return (int)cudaGetLastError();
 }
 
-int kzg_g1_dbl(void* ox, void* oy, void* oz, const void* x, const void* y,
-               const void* z, long long n, void* stream) {
+template <class E>
+int launch_dbl(void* ox, void* oy, void* oz, const void* x, const void* y, const void* z,
+               long long n, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
-  g1_dbl_kernel<<<blocks_for(n), kPointThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  dbl_kernel<E><<<blocks_for(n), kPointThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint32_t*>(ox), static_cast<uint32_t*>(oy), static_cast<uint32_t*>(oz),
       static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(y),
       static_cast<const uint32_t*>(z), n);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// G1: coordinates (12, n) words
+int kzg_g1_add(void* ox, void* oy, void* oz, const void* x1, const void* y1,
+               const void* z1, const void* x2, const void* y2, const void* z2,
+               long long n, void* stream) {
+  return launch_add<FpE>(ox, oy, oz, x1, y1, z1, x2, y2, z2, n, stream);
+}
+
+int kzg_g1_dbl(void* ox, void* oy, void* oz, const void* x, const void* y,
+               const void* z, long long n, void* stream) {
+  return launch_dbl<FpE>(ox, oy, oz, x, y, z, n, stream);
+}
+
+// G2: coordinates (12, 2, n) words
+int kzg_g2_add(void* ox, void* oy, void* oz, const void* x1, const void* y1,
+               const void* z1, const void* x2, const void* y2, const void* z2,
+               long long n, void* stream) {
+  return launch_add<Fp2E>(ox, oy, oz, x1, y1, z1, x2, y2, z2, n, stream);
+}
+
+int kzg_g2_dbl(void* ox, void* oy, void* oz, const void* x, const void* y,
+               const void* z, long long n, void* stream) {
+  return launch_dbl<Fp2E>(ox, oy, oz, x, y, z, n, stream);
 }
 
 int kzg_g1_bucket_accumulate(void* ox, void* oy, void* oz, const void* rows,

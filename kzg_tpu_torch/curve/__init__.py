@@ -3,17 +3,18 @@
 `G1` is the group law over `FP` whose batch point ops run as kernels K2-K4
 on CUDA tensors (and as their plain twins on CPU tensors); its remaining
 formulas (`madd`, `to_affine`, `eq`) are tensor code over K1 field math.
-G2 points are only stored and converted on the host in this slice: they are
-(X, Y, inf) with (12, 2, n) Fp2 coordinates, c0 then c1 on axis 1.
+`G2` is the group law over Fp2 (`Fp2Adapter(FP)`): its `add` / `dbl` run
+as the Fp2 instantiation of K2, the rest over K1. G2 coordinates are
+(12, 2, *batch) words, c0 then c1 on axis 1.
 """
 
 import numpy as np
 import torch
 
-from ..constants import G1_GEN
+from ..constants import G1_GEN, G2_GEN
 from ..fields import FP
 from . import cuda_ops
-from .ops import CurveOps
+from .ops import CurveOps, Fp2Adapter
 
 
 class _G1(CurveOps):
@@ -34,6 +35,21 @@ class _G1(CurveOps):
 
 
 G1 = _G1(FP, name="G1")
+
+
+class _G2(CurveOps):
+    """G2 with the Fp2 point kernels behind add / dbl (no bucket kernels
+    yet: `msm.msm_g2` takes only the ladder)."""
+
+    def add(self, p, q):
+        return cuda_ops.g2_add(p, q)
+
+    def dbl(self, p):
+        return cuda_ops.g2_dbl(p)
+
+
+FP2 = Fp2Adapter(FP)
+G2 = _G2(FP2, name="G2")
 
 
 def _tensor(words_np: np.ndarray, device) -> torch.Tensor:
@@ -98,13 +114,15 @@ def g2_to_device(points, device=None):
 
 
 def g2_from_device(point):
-    """Affine (x, y, inf_mask) G2 batch of (12, 2, n) words -> oracle points.
-    (Jacobian G2 batches need Fp2 inversion, which belongs to the G2 slice.)"""
+    """Batched G2 device point -> list of oracle points. Accepts a Jacobian
+    (X, Y, Z) batch or an affine (x, y, inf_mask) batch of (12, 2, ...)
+    words."""
     from ..oracle.field import Fp2
 
-    if not _is_affine_triple(point, 2):
-        raise NotImplementedError("g2_from_device takes affine (x, y, inf) batches")
-    x, y, inf = point
+    if _is_affine_triple(point, 2):
+        x, y, inf = point
+    else:
+        x, y, inf = G2.to_affine(point)
     xc0, xc1 = FP.decode(x[:, 0]), FP.decode(x[:, 1])
     yc0, yc1 = FP.decode(y[:, 0]), FP.decode(y[:, 1])
     infs = inf.reshape(-1).cpu().numpy()
@@ -122,7 +140,16 @@ def g1_generator_device(n: int = 1, device=None):
     )
 
 
+def g2_generator_device(n: int = 1, device=None):
+    """(X, Y, Z) of n copies of the G2 generator, (12, 2, n) words each."""
+
+    def fp2(c0, c1):
+        return _tensor(np.stack([FP.encode([c0] * n), FP.encode([c1] * n)], axis=1), device)
+
+    return (fp2(*G2_GEN[0]), fp2(*G2_GEN[1]), fp2(1, 0))
+
+
 __all__ = [
-    "G1", "CurveOps", "g1_to_device", "g1_from_device", "g2_to_device",
-    "g2_from_device", "g1_generator_device",
+    "G1", "G2", "FP2", "CurveOps", "Fp2Adapter", "g1_to_device", "g1_from_device",
+    "g2_to_device", "g2_from_device", "g1_generator_device", "g2_generator_device",
 ]

@@ -1,16 +1,19 @@
-"""Kernels K2-K4: the G1 point kernels of the MSM, and their plain twins.
+"""Kernels K2-K4: the point kernels of the MSM, and their plain twins.
 
 All three live in `csrc/point_kernels.cu` over the Montgomery arithmetic of
-`csrc/field.cuh`. Coordinates are limb-major (12, n) int32 words.
+`csrc/field.cuh`. G1 coordinates are limb-major (12, n) int32 words, G2
+coordinates (12, 2, n) (Fp2: c0 then c1 on axis 1).
 
-K2 `add` / `dbl` replace `_PointKernels.add` / `.dbl`
-(`kzg_tpu/curve/pallas_ops.py:712,707`; the group law of `:81-196`).
-One thread per point, the formulas and exceptional-case selects verbatim
-(opposite -> (1, 1, 0), infinity operands pass the other point through);
-the rare doubling inside `add` is a per-thread branch. Bound: Fp
-multiplications (add-2007-bl is 11M + 5S, each a 144-multiply CIOS) and
-registers (three 12-word points live at once); on the TPU it was VMEM
-round trips of limb planes, which the register-resident thread removes.
+K2 `add` / `dbl` (G1) and `g2_add` / `g2_dbl` (G2) replace
+`_PointKernels.add` / `.dbl` (`kzg_tpu/curve/pallas_ops.py:712,707`, with
+ncomp = 1 and 2; the group law of `:81-196`). One kernel template over the
+coordinate type, one thread per point, the formulas and exceptional-case
+selects verbatim (opposite -> (1, 1, 0), infinity operands pass the other
+point through); the rare doubling inside `add` is a per-thread branch.
+Bound: field multiplications (add-2007-bl is 11M + 5S, an Fp M being a
+144-multiply CIOS and an Fp2 M three of them) and registers (a G2 point is
+72 words, so the G2 kernels spill); on the TPU it was VMEM round trips of
+limb planes, which the register-resident thread removes.
 
 K3 `bucket_accumulate` replaces `_PointKernels.bucket_accumulate`
 (`pallas_ops.py:388`). The TPU version walked one window per launch over a
@@ -39,19 +42,24 @@ Each wrapper takes the plain twin for CPU tensors and launches its kernel
 for CUDA tensors; `*_plain` are the twins, usable on any device.
 """
 
+import math
+
 import torch
 
 from .. import kernels
 from ..fields import FP
-from .ops import CurveOps
+from .ops import CurveOps, Fp2Adapter
 
 _ADD = kernels.REGISTRY["g1_add"]
 _DBL = kernels.REGISTRY["g1_dbl"]
 _BUCKETS = kernels.REGISTRY["bucket_accumulate"]
 _HORNER = kernels.REGISTRY["horner_join"]
+_ADD2 = kernels.REGISTRY["g2_add"]
+_DBL2 = kernels.REGISTRY["g2_dbl"]
 
-# the plain twin of the point kernels: the same formulas over plain field ops
+# the plain twins of the point kernels: the same formulas over plain field ops
 PLAIN = CurveOps(FP.as_plain(), name="G1-plain")
+PLAIN2 = CurveOps(Fp2Adapter(FP.as_plain()), name="G2-plain")
 
 _W = FP.W  # 12 words per Fp coordinate
 
@@ -64,15 +72,17 @@ def _is_cpu(t: torch.Tensor) -> bool:
     return False
 
 
-def _coord(t: torch.Tensor, device, n: int, what: str) -> torch.Tensor:
-    if t.dtype != torch.int32 or t.device != device or t.shape[0] != _W:
+def _coord(t: torch.Tensor, device, n: int, what: str, lead=(_W,)) -> torch.Tensor:
+    """t as a contiguous (*lead, n) tensor, checked: (12, n) for G1
+    coordinates, (12, 2, n) for G2."""
+    if t.dtype != torch.int32 or t.device != device or tuple(t.shape[:len(lead)]) != lead:
         raise kernels.KernelError(
-            f"{what}: expected int32 ({_W}, ...) words on {device}, got "
+            f"{what}: expected int32 {lead + ('...',)} words on {device}, got "
             f"{t.dtype} {tuple(t.shape)} on {t.device}"
         )
-    flat = t.reshape(_W, -1)
-    if flat.shape[1] != n:
-        raise kernels.KernelError(f"{what}: batch {flat.shape[1]} != {n}")
+    flat = t.reshape(lead + (-1,))
+    if flat.shape[-1] != n:
+        raise kernels.KernelError(f"{what}: batch {flat.shape[-1]} != {n}")
     return flat.contiguous()
 
 
@@ -90,41 +100,57 @@ def dbl_plain(p):
     return PLAIN.dbl(p)
 
 
-def add(p, q):
-    """K2 Jacobian add-2007-bl (exceptional cases included), elementwise
-    over equal-shaped batches."""
-    if _is_cpu(p[0]):
-        return add_plain(p, q)
-    shape = p[0].shape
-    n = p[0].numel() // _W
-    dev = p[0].device
-    ins = [_coord(t, dev, n, "g1_add") for t in (*p, *q)]
+def _launch(entry, counter, lead, coords, what):
+    """Launch a pointwise K2 entry on the coordinates of one or two point
+    batches ((*lead, *batch) each); returns the (X, Y, Z) result."""
+    shape = coords[0].shape
+    n = coords[0].numel() // math.prod(lead)
+    dev = coords[0].device
+    ins = [_coord(t, dev, n, what, lead) for t in coords]
     out = [torch.empty_like(ins[0]) for _ in range(3)]
     if n:
-        rc = kernels.library().kzg_g1_add(
-            *_ptrs(out), *_ptrs(ins), n, kernels.stream_handle(dev)
-        )
-        kernels.check_status(rc, "g1_add")
-        _ADD.launches += 1
+        rc = entry(*_ptrs(out), *_ptrs(ins), n, kernels.stream_handle(dev))
+        kernels.check_status(rc, what)
+        counter.launches += 1
     return tuple(o.reshape(shape) for o in out)
+
+
+def add(p, q):
+    """K2 Jacobian add-2007-bl (exceptional cases included), elementwise
+    over equal-shaped G1 batches."""
+    if _is_cpu(p[0]):
+        return add_plain(p, q)
+    return _launch(kernels.library().kzg_g1_add, _ADD, (_W,), (*p, *q), "g1_add")
 
 
 def dbl(p):
-    """K2 Jacobian dbl-2009-l, elementwise."""
+    """K2 Jacobian dbl-2009-l, elementwise over a G1 batch."""
     if _is_cpu(p[0]):
         return dbl_plain(p)
-    shape = p[0].shape
-    n = p[0].numel() // _W
-    dev = p[0].device
-    ins = [_coord(t, dev, n, "g1_dbl") for t in p]
-    out = [torch.empty_like(ins[0]) for _ in range(3)]
-    if n:
-        rc = kernels.library().kzg_g1_dbl(
-            *_ptrs(out), *_ptrs(ins), n, kernels.stream_handle(dev)
-        )
-        kernels.check_status(rc, "g1_dbl")
-        _DBL.launches += 1
-    return tuple(o.reshape(shape) for o in out)
+    return _launch(kernels.library().kzg_g1_dbl, _DBL, (_W,), p, "g1_dbl")
+
+
+def g2_add_plain(p, q):
+    return PLAIN2.add(p, q)
+
+
+def g2_dbl_plain(p):
+    return PLAIN2.dbl(p)
+
+
+def g2_add(p, q):
+    """K2 over Fp2: G2 Jacobian add, elementwise over equal-shaped batches
+    of (12, 2, *batch) coordinates."""
+    if _is_cpu(p[0]):
+        return g2_add_plain(p, q)
+    return _launch(kernels.library().kzg_g2_add, _ADD2, (_W, 2), (*p, *q), "g2_add")
+
+
+def g2_dbl(p):
+    """K2 over Fp2: G2 Jacobian dbl, elementwise."""
+    if _is_cpu(p[0]):
+        return g2_dbl_plain(p)
+    return _launch(kernels.library().kzg_g2_dbl, _DBL2, (_W, 2), p, "g2_dbl")
 
 
 # ---- K3: bucket accumulation ----------------------------------------------------------

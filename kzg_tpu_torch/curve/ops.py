@@ -1,22 +1,98 @@
-"""Branch-free Jacobian group law for G1 over a field of packed words (port
-of `kzg_tpu/curve/ops.py`, G1 part).
+"""Branch-free Jacobian group law over Fp (G1) and Fp2 (G2), generic over a
+field adapter (port of `kzg_tpu/curve/ops.py`).
 
 The formulas are ported verbatim (dbl-2009-l, add-2007-bl, madd-2007-bl,
-a = 0) with the same exceptional-case selects, so over the same field they
-give the JAX package's `CurveOps` outputs limb for limb. Points are
-(X, Y, Z) tuples of (W, *batch) tensors; Z == 0 encodes infinity, and
-infinity is written (1, 1, 0) in Montgomery form.
+a = 0, which never reference b) with the same exceptional-case selects, so
+over the same field they give the JAX package's `CurveOps` outputs limb for
+limb. Points are (X, Y, Z) tuples of field elements; Z == 0 encodes
+infinity, and infinity is written (1, 1, 0) in Montgomery form.
 
-`CurveOps` is generic over its field object: over `FP` its field math goes
-through kernel K1 on CUDA tensors; over `FP.as_plain()` it is the plain
-PyTorch twin of the point kernels (curve/cuda_ops.py).
+The field adapter is a `LimbField` for G1 (elements (W, *batch)) or an
+`Fp2Adapter` for G2 (elements (W, 2, *batch), c0 then c1 on axis 1). Each
+has `bdim`, the number of leading non-batch axes, and `expand`, which lifts
+a batch mask onto elements. Over `FP` the field math goes through kernel K1
+on CUDA tensors; over `FP.as_plain()` (or `Fp2Adapter(FP.as_plain())`) it
+is the plain PyTorch twin of the point kernels (curve/cuda_ops.py).
 """
 
 import torch
 
 
+class Fp2Adapter:
+    """Quadratic extension Fp[u]/(u^2 + 1) over a LimbField: element shape
+    (W, 2, *batch). Karatsuba `mul` and the (a + b)(a - b) `sqr` of
+    `kzg_tpu/curve/ops.py:70-137`; the independent Fp multiplications of
+    each run as ONE batched field multiply (the components stacked on axis
+    1), which gives the same words in fewer launches."""
+
+    bdim = 2
+
+    def __init__(self, field):
+        self.f = field
+        self.W = field.W
+        self.name = f"{field.name}2"
+
+    def add(self, a, b):
+        return self.f.add(a, b)
+
+    def sub(self, a, b):
+        return self.f.sub(a, b)
+
+    def neg(self, a):
+        return self.f.neg(a)
+
+    def mul(self, x, y):
+        f = self.f
+        x, y = torch.broadcast_tensors(x, y)
+        ab_cd = f.add(torch.stack([x[:, 0], y[:, 0]], dim=1), torch.stack([x[:, 1], y[:, 1]], dim=1))
+        lhs = torch.cat([x, ab_cd[:, :1]], dim=1)  # a, b, a + b
+        rhs = torch.cat([y, ab_cd[:, 1:]], dim=1)  # c, d, c + d
+        prods = f.mul(lhs, rhs)
+        ac, bd, t = prods[:, 0], prods[:, 1], prods[:, 2]
+        re = f.sub(ac, bd)
+        im = f.sub(f.sub(t, ac), bd)
+        return torch.stack([re, im], dim=1)
+
+    def sqr(self, x):
+        f = self.f
+        a, b = x[:, 0], x[:, 1]
+        lhs = torch.stack([f.add(a, b), a], dim=1)
+        rhs = torch.stack([f.sub(a, b), b], dim=1)
+        prods = f.mul(lhs, rhs)  # (a + b)(a - b), ab
+        ab = prods[:, 1]
+        return torch.stack([prods[:, 0], f.add(ab, ab)], dim=1)
+
+    def is_zero(self, a):
+        return (a == 0).all(dim=0).all(dim=0)
+
+    def eq(self, a, b):
+        return (a == b).all(dim=0).all(dim=0)
+
+    def expand(self, cond):
+        return cond[None, None]
+
+    def zeros(self, batch_shape=(), device=None):
+        return self.f.zeros((2,) + tuple(batch_shape), device)
+
+    def one(self, batch_shape=(), device=None):
+        return torch.stack(
+            [self.f.one(batch_shape, device), self.f.zeros(batch_shape, device)], dim=1
+        )
+
+    def batch_inv(self, x):
+        """(a + bu)^-1 = (a - bu) / (a^2 + b^2), the norm inverted with the
+        base field's batch_inv along the last axis; inv(0) = 0."""
+        f = self.f
+        a, b = x[:, 0], x[:, 1]
+        sq = f.mul(x, x)  # a^2, b^2
+        ninv = f.batch_inv(f.add(sq[:, 0], sq[:, 1]))
+        prods = f.mul(x, ninv[:, None])  # a / n, b / n
+        return torch.stack([prods[:, 0], f.neg(prods[:, 1])], dim=1)
+
+
 class CurveOps:
-    """Jacobian group law on y^2 = x^3 + b over the field `f` (a LimbField)."""
+    """Jacobian group law on y^2 = x^3 + b over the field adapter `f` (a
+    LimbField for G1, an Fp2Adapter for G2)."""
 
     def __init__(self, f, name="G1"):
         self.f = f
@@ -29,7 +105,7 @@ class CurveOps:
         return (one, one.clone(), self.f.zeros(batch_shape, device))
 
     def from_affine(self, x, y):
-        return (x, y, self.f.one(x.shape[1:], x.device))
+        return (x, y, self.f.one(x.shape[self.f.bdim:], x.device))
 
     # ---- predicates ------------------------------------------------------------
 
@@ -37,7 +113,8 @@ class CurveOps:
         return self.f.is_zero(p[2])
 
     def select(self, cond, p, q):
-        return tuple(torch.where(cond[None], a, b) for a, b in zip(p, q))
+        e = self.f.expand(cond)
+        return tuple(torch.where(e, a, b) for a, b in zip(p, q))
 
     def eq(self, p, q):
         """Projective equality with infinity handled."""
@@ -174,8 +251,8 @@ class CurveOps:
         f = self.f
         x, y, z = p
         inf = self.is_inf(p)
-        zsafe = torch.where(inf[None], f.one(inf.shape, z.device), z)
-        flat = zsafe.reshape(f.W, -1)
+        zsafe = torch.where(f.expand(inf), f.one(inf.shape, z.device), z)
+        flat = zsafe.reshape(zsafe.shape[:f.bdim] + (-1,))
         zinv = f.batch_inv(flat).reshape(zsafe.shape)
         zi2 = f.sqr(zinv)
         zi3 = f.mul(zinv, zi2)

@@ -23,6 +23,12 @@ canonical Montgomery integers, so they agree bit for bit.
 
 `binary` / `mul_const` are the wrappers: a CPU tensor takes the plain twin,
 a CUDA tensor launches K1 (or raises), any other device raises.
+
+Kernel K5 (`ntt_stage`, `csrc/ntt_kernels.cu`), the NTT butterfly stage
+that replaces `make_ntt_stage` (`pallas_field.py:346`), is wrapped here too,
+with its plain twins `ntt_stage_plain` (the butterfly) and
+`ntt_stage_layout_plain` (the whole stage with K5's twiddle indexing and
+interleaved output).
 """
 
 import ctypes
@@ -206,4 +212,66 @@ def mul_const(field, a: torch.Tensor, c_words: np.ndarray) -> torch.Tensor:
     )
     kernels.check_status(rc, f"{field.name} mul_const")
     _K1.launches += 1
+    return out
+
+
+# ---- K5: one NTT butterfly stage ----------------------------------------------------
+
+_K5 = kernels.REGISTRY["ntt_stage"]
+
+
+def _fr():
+    from . import FR  # fields/__init__ builds FR from this module
+
+    return FR
+
+
+def ntt_stage_plain(a: torch.Tensor, b: torch.Tensor, w: torch.Tensor):
+    """Plain twin of the butterfly of K5 and of `make_ntt_stage`
+    (`kzg_tpu/fields/pallas_field.py:346`): (a + b, (a - b) * w) over
+    Montgomery Fr (8, ...) words, broadcast, on any device."""
+    fr = _fr()
+    return binary_plain(fr, ADD, a, b), binary_plain(fr, MUL, binary_plain(fr, SUB, a, b), w)
+
+
+def ntt_stage_layout_plain(x: torch.Tensor, tw: torch.Tensor, s: int) -> torch.Tensor:
+    """Plain twin of K5 on any device: stage s of the DIF loop over
+    x (8, nb, m, bt), transforms along axis 2. Butterfly j < m/2 pairs rows
+    j and j + m/2 with twiddle tw[:, j & ~(2^s - 1)] and writes rows 2j and
+    2j + 1 (`kzg_tpu/ntt/domain.py:327-345, 394-410`)."""
+    W, nb, m, bt = x.shape
+    h = m // 2
+    j = torch.arange(h, device=x.device)
+    w = tw[:, j & ~((1 << s) - 1)].reshape(W, 1, h, 1)
+    u, v = ntt_stage_plain(x[:, :, :h], x[:, :, h:], w)
+    return torch.stack([u, v], dim=3).reshape(x.shape)
+
+
+def ntt_stage(x: torch.Tensor, tw: torch.Tensor, s: int) -> torch.Tensor:
+    """K5: one DIF butterfly stage (see `ntt_stage_layout_plain`), the
+    plain twin for CPU tensors, the CUDA kernel for CUDA tensors.
+    x: (8, nb, m, bt) int32 Montgomery Fr words; tw: (8, >= m/2) the
+    domain's half twiddle table. Returns a new (8, nb, m, bt) tensor."""
+    if _device_kind(x) == "cpu":
+        return ntt_stage_layout_plain(x, tw, s)
+    fr = _fr()
+    _check_operand(fr, x, x.device)
+    _check_operand(fr, tw, x.device)
+    if x.dim() != 4 or tw.dim() != 2 or x.shape[2] % 2 or tw.shape[1] < x.shape[2] // 2:
+        raise kernels.KernelError(
+            f"ntt_stage: x must be (8, nb, m, bt) with m even and tw (8, >= m/2), "
+            f"got {tuple(x.shape)} and {tuple(tw.shape)}"
+        )
+    _, nb, m, bt = x.shape
+    x = x.contiguous()
+    tw = tw.contiguous()
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    rc = kernels.library().kzg_ntt_stage(
+        out.data_ptr(), x.data_ptr(), tw.data_ptr(), nb, m, bt, tw.shape[1], s,
+        kernels.stream_handle(x.device),
+    )
+    kernels.check_status(rc, f"ntt_stage {tuple(x.shape)} s={s}")
+    _K5.launches += 1
     return out

@@ -59,6 +59,8 @@ def words_to_ints(arr) -> list:
 class LimbField:
     """Modular arithmetic for one prime field at a fixed word count."""
 
+    bdim = 1  # leading non-batch axes of an element: the word axis
+
     def __init__(self, modulus: int, n_words: int, name: str, kernel_id: int,
                  plain: bool = False):
         assert modulus < (1 << (32 * n_words))
@@ -155,6 +157,10 @@ class LimbField:
 
     def eq(self, a, b):
         return (a == b).all(dim=0)
+
+    def expand(self, cond):
+        """A batch-shaped mask, broadcastable against elements."""
+        return cond[None]
 
     def select(self, cond, a, b):
         """cond: batch-shaped bool; picks a where true."""

@@ -2,10 +2,11 @@
 
 All kernels live in `kzg_tpu_torch/csrc/` and are compiled by `nvcc` for
 `sm_90a` into ONE shared library with a plain C interface, loaded through
-`ctypes` (no PyTorch headers, so the build takes seconds). The build runs at
-first use, into `build/kzg_tpu_torch/<hash of sources and flags>/`, so a
-changed source never loads a stale library. Nothing here runs at import
-time: the CPU tests import every module of the port.
+`ctypes` (no PyTorch headers). Each source compiles to an object in its own
+`nvcc` process, all started together, then one link makes the library. The
+build runs at first use, into `build/kzg_tpu_torch/<hash of sources and
+flags>/`, so a changed source never loads a stale library. Nothing here
+runs at import time: the CPU tests import every module of the port.
 
 Each kernel is described by a `Kernel` record in `REGISTRY`: its C entry
 point, its source, the Pallas kernel it replaces, and `launches`, the count
@@ -24,11 +25,11 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "kzg_tpu_torch"
-SOURCES = ("field_kernels.cu", "point_kernels.cu")
+SOURCES = ("field_kernels.cu", "point_kernels.cu", "ntt_kernels.cu")
 HEADERS = ("field.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 LIB_NAME = "libkzg_tpu_torch_kernels.so"
 
@@ -59,6 +60,13 @@ REGISTRY = {
                "kzg_tpu/curve/pallas_ops.py:388"),
         Kernel("horner_join", "kzg_tpu_torch/csrc/point_kernels.cu",
                "kzg_tpu/curve/pallas_ops.py:590"),
+        Kernel("ntt_stage", "kzg_tpu_torch/csrc/ntt_kernels.cu",
+               "kzg_tpu/fields/pallas_field.py:346"),
+        # the ncomp=2 (Fp2) instantiations of _PointKernels.add / .dbl
+        Kernel("g2_add", "kzg_tpu_torch/csrc/point_kernels.cu",
+               "kzg_tpu/curve/pallas_ops.py:712"),
+        Kernel("g2_dbl", "kzg_tpu_torch/csrc/point_kernels.cu",
+               "kzg_tpu/curve/pallas_ops.py:707"),
     )
 }
 
@@ -93,20 +101,33 @@ def source_digest() -> str:
 def build() -> Path:
     """Compile the kernels unless this exact source set is already built.
     Returns the library path; the compiler's `-Xptxas -v` report (registers,
-    spills) is kept beside it as `ptxas.log`."""
+    spills) of every source is kept beside it as `ptxas.log`."""
     out_dir = BUILD_ROOT / source_digest()
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    tag = os.getpid()
+    nvcc = _nvcc()
+    objs = [out_dir / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", str(o)]
+            for s, o in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    (out_dir / "ptxas.log").write_text("".join(logs))
+    for cmd, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise KernelError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{log}")
+    tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp),
+           *map(str, objs)]
     res = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "ptxas.log").write_text(res.stdout + res.stderr)
     if res.returncode != 0:
-        raise KernelError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stdout}{res.stderr}"
-        )
+        raise KernelError(f"nvcc link failed ({res.returncode}): {' '.join(cmd)}\n"
+                          f"{res.stdout}{res.stderr}")
+    for o in objs:
+        o.unlink()
     os.replace(tmp, lib)  # atomic: a concurrent process never loads half a file
     return lib
 
@@ -126,6 +147,11 @@ _SIGNATURES = {
     "kzg_g1_add": (_P,) * 9 + (_N, _P),
     # (ox, oy, oz, x, y, z, n, stream)
     "kzg_g1_dbl": (_P,) * 6 + (_N, _P),
+    # G2: the same with (12, 2, n) coordinates
+    "kzg_g2_add": (_P,) * 9 + (_N, _P),
+    "kzg_g2_dbl": (_P,) * 6 + (_N, _P),
+    # (out, x, twiddles, nb, m, bt, table length, stage, stream)
+    "kzg_ntt_stage": (_P,) * 3 + (_N,) * 4 + (_I, _P),
     # (ox, oy, oz, rows, order, start, count, windows, buckets, n, stream)
     "kzg_g1_bucket_accumulate": (_P,) * 7 + (_I, _I, _N, _P),
     # (ox, oy, oz, sx, sy, sz, windows, c, stream)

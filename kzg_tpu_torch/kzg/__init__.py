@@ -5,11 +5,13 @@ _EXPORTS = {
     "KZGError": "errors",
     "PolynomialDegreeTooLarge": "errors",
     "PointNotOnPolynomial": "errors",
+    "BatchedPointsNotOnPolynomial": "errors",
     "KZGParams": "srs",
     "setup": "srs",
     "csprng_setup": "srs",
     "KZGProver": "coeff_form",
     "KZGVerifier": "coeff_form",
+    "KZGBatchWitness": "coeff_form",
 }
 
 __all__ = list(_EXPORTS)

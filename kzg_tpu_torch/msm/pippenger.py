@@ -1,5 +1,5 @@
-"""Pippenger multi-scalar multiplication over G1 (port of
-`kzg_tpu/msm/pippenger.py`, the `msm_impl="runs"` structure).
+"""Pippenger multi-scalar multiplication over G1, and the small G2 MSM
+(port of `kzg_tpu/msm/pippenger.py`, the `msm_impl="runs"` structure).
 
   * scalars are cut into c-bit window digits (`_digits`);
   * per window, points are stably sorted by digit (`torch.argsort`) so each
@@ -25,6 +25,11 @@ no TPU block to fill:
 Below small_msm_threshold points a batched double-and-add ladder on K2 plus
 a tree sum is used (`_msm_small`), as in the reference. MSMs are not chunked
 above 2^msm_chunk_log points yet (the reference's `:818-833`).
+
+G2 (`msm_g2`) has only that ladder (G2 `add` / `dbl` kernels): the Fp2
+bucket kernels (`bucket_accumulate` / `horner_join` with ncomp = 2) are not
+ported yet, so a G2 MSM of small_msm_threshold points or more raises
+instead of running the ladder at a size the reference would bucket.
 """
 
 import math
@@ -32,7 +37,7 @@ import math
 import torch
 
 from ..config import get_config
-from ..curve import G1
+from ..curve import G1, G2
 from ..fields import FR
 
 
@@ -167,19 +172,31 @@ def _msm_runs(curve, xa, ya, inf, scalars_std, c: int):
 
 
 def msm(curve, points, scalars_mont, c: int | None = None):
-    """MSM over G1: points = (x, y, inf_mask) affine batch of (12, N) words,
-    scalars (8, N) in Montgomery form. Returns one Jacobian point, 3 x (12,)."""
+    """MSM: points = (x, y, inf_mask) affine batch ((12, N) words for G1,
+    (12, 2, N) for G2), scalars (8, N) in Montgomery form. Returns one
+    Jacobian point."""
     xa, ya, inf = points
     n = xa.shape[-1]
     if scalars_mont.shape[-1] != n:
         raise ValueError(f"{n} points but {scalars_mont.shape[-1]} scalars")
     if c is None:
         c = effective_window(n)
+    small = n < get_config().small_msm_threshold
+    if not small and not hasattr(curve, "bucket_accumulate"):
+        raise NotImplementedError(
+            f"{curve.name} MSM of {n} >= small_msm_threshold points needs the "
+            f"{curve.name} bucket kernels (bucket_accumulate / horner_join, ncomp=2), "
+            "not ported yet: ROADMAP Queue 2"
+        )
     scalars_std = FR.from_mont(scalars_mont)
-    if n < get_config().small_msm_threshold:
+    if small:
         return _msm_small(curve, xa, ya, inf, scalars_std)
     return _msm_runs(curve, xa, ya, inf, scalars_std, c)
 
 
 def msm_g1(points, scalars_mont, c: int | None = None):
     return msm(G1, points, scalars_mont, c)
+
+
+def msm_g2(points, scalars_mont, c: int | None = None):
+    return msm(G2, points, scalars_mont, c)

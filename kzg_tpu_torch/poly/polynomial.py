@@ -1,22 +1,52 @@
-"""Dense polynomials over Fr: the subset of `kzg_tpu/poly/polynomial.py`
-that the coefficient-form single opening runs.
+"""Dense polynomials over Fr (port of `kzg_tpu/poly/polynomial.py`).
 
 Coefficients are an (8, n) int32 tensor of Montgomery Fr words (word axis
 leading, coefficient index on the batch axis) with the degree tracked as a
 host int. The prefix scans and `batch_inv` behind evaluation and linear
 division were XLA, not Pallas, in the JAX package; here they are plain
 tensor code whose field math runs on kernel K1 for CUDA tensors.
+Multiplication is NTT-based at every size (`_mul_ntt`, kernel K5 in every
+butterfly stage); long division is a schoolbook loop for short quotients
+and Newton-inverse division above `newton_div_threshold` (poly/newton.py).
+
+Not ported yet: the chunked linear division for the streamed witness
+(`_div_by_linear_big`, `_div_stream_consts`, `_div_stream_chunk`).
 """
 
 import torch
 
 from ..fields import FR
+from ..ntt import Domain
 
 
 def _pad_to(c: torch.Tensor, n: int) -> torch.Tensor:
     if c.shape[-1] == n:
         return c
     return torch.nn.functional.pad(c, (0, n - c.shape[-1]))
+
+
+def _mul_ntt(a: torch.Tensor, b: torch.Tensor, out_len: int) -> torch.Tensor:
+    """Product of coefficient arrays via NTT (reference fft_mul semantics,
+    polynomial.rs:167-183), batched over any leading dims."""
+    exp = max(1, (out_len - 1).bit_length())
+    dom = Domain(exp)
+    fa = dom.ntt(_pad_to(a, dom.d))
+    fb = dom.ntt(_pad_to(b, dom.d))
+    return dom.intt(FR.mul(fa, fb))[..., :out_len]
+
+
+def _mul_naive(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Schoolbook product, one shifted multiply-add per coefficient of the
+    shorter operand (the parity oracle for `_mul_ntt`, mirroring the
+    reference's naive Mul, polynomial.rs:473-487)."""
+    if b.shape[-1] > a.shape[-1]:
+        a, b = b, a
+    na, nb = a.shape[-1], b.shape[-1]
+    apad = _pad_to(a, na + nb - 1)
+    acc = FR.zeros(apad.shape[1:], a.device)
+    for j in range(nb):
+        acc = FR.add(acc, FR.mul(torch.roll(apad, j, dims=-1), b[..., j:j + 1]))
+    return acc
 
 
 def _eval_many(coeffs: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
@@ -65,8 +95,32 @@ def _div_by_linear(f: torch.Tensor, x: torch.Tensor):
     return q, rem
 
 
+def _long_division(f: torch.Tensor, d: torch.Tensor, nf: int, nd: int):
+    """Schoolbook long division (reference polynomial.rs:193-227): returns
+    (quotient, remainder). nf / nd are true coefficient counts; d's leading
+    coefficient must be nonzero. One step per quotient coefficient, high to
+    low."""
+    f = f[..., :nf]
+    d = d[..., :nd]
+    steps = nf - nd + 1
+    if steps <= 0:
+        return FR.zeros((1,), f.device), f  # quotient 0, remainder f
+    dlead_inv = FR.inv(d[..., nd - 1:nd])
+    dtop = torch.roll(_pad_to(d, nf), nf - nd, dims=-1)  # d's coeffs at [nf-nd, nf)
+    rem = f
+    qs = []
+    for _ in range(steps):
+        factor = FR.mul(rem[..., nf - 1:nf], dlead_inv)
+        rem = torch.roll(FR.sub(rem, FR.mul(dtop, factor)), 1, dims=-1)
+        qs.append(factor)
+    q = torch.cat(qs[::-1], dim=-1)
+    r = rem[..., nf - (nd - 1):] if nd > 1 else FR.zeros((1,), f.device)
+    return q, r
+
+
 class Polynomial:
-    """Dense polynomial over Fr with an explicitly tracked degree."""
+    """Dense polynomial over Fr with an explicitly tracked degree (reference
+    polynomial.rs:49-165, 295-300)."""
 
     def __init__(self, coeffs: torch.Tensor, degree: int | None = None):
         if coeffs.dim() != 2 or coeffs.shape[0] != FR.W or coeffs.dtype != torch.int32:
@@ -75,6 +129,8 @@ class Polynomial:
         self.degree = coeffs.shape[-1] - 1 if degree is None else degree
         if not 0 <= self.degree < coeffs.shape[-1]:
             raise ValueError(f"degree {self.degree} outside {coeffs.shape[-1]} coefficients")
+
+    # ---- constructors (polynomial.rs:49-92 parity) ---------------------------
 
     @classmethod
     def from_ints(cls, ints, degree: int | None = None, device=None):
@@ -87,6 +143,35 @@ class Polynomial:
                 degree -= 1
         return cls(c, degree)
 
+    @classmethod
+    def new_zero(cls, device=None):
+        return cls(FR.zeros((1,), device), 0)
+
+    @classmethod
+    def from_scalar(cls, scalar, device=None):
+        """Constant polynomial (polynomial.rs:56-61): an int or an (8, 1)
+        word tensor."""
+        if isinstance(scalar, int):
+            return cls(torch.from_numpy(FR.encode([scalar])).to(device), 0)
+        return cls(scalar, 0)
+
+    @classmethod
+    def new_zero_with_size(cls, n: int, device=None):
+        return cls(FR.zeros((n,), device), 0)
+
+    @classmethod
+    def new_monic_of_degree(cls, degree: int, device=None):
+        """All-ones polynomial of the given degree (polynomial.rs:63-70)."""
+        return cls(FR.one((degree + 1,), device), degree)
+
+    @classmethod
+    def new_single_term(cls, degree: int, device=None):
+        c = FR.zeros((degree + 1,), device)
+        c[:, degree] = FR.one((), device)
+        return cls(c, degree)
+
+    # ---- bookkeeping (polynomial.rs:94-155 parity) ---------------------------
+
     @property
     def device(self):
         return self.coeffs.device
@@ -94,12 +179,78 @@ class Polynomial:
     def num_coeffs(self) -> int:
         return self.degree + 1
 
+    def is_zero(self) -> bool:
+        return bool(FR.is_zero(self.coeffs).all())
+
     def trimmed(self) -> torch.Tensor:
         """Coefficients truncated to num_coeffs."""
         return self.coeffs[:, : self.degree + 1]
 
+    def _last_nonzero(self, c: torch.Tensor) -> int:
+        idx = torch.nonzero(~FR.is_zero(c)).reshape(-1)
+        return int(idx[-1]) if idx.numel() else 0
+
+    def fixup_degree(self):
+        """Sync the tracked degree down past leading zeros (device -> host;
+        polynomial.rs:108-125)."""
+        self.degree = self._last_nonzero(self.coeffs)
+        return self
+
+    def shrink_degree(self):
+        """Like fixup_degree, scanning only up to the tracked degree
+        (polynomial.rs:117-120)."""
+        self.degree = self._last_nonzero(self.trimmed())
+        return self
+
+    def truncate(self, degree: int):
+        """Drop the terms above `degree` (polynomial.rs:107-110); returns a
+        new Polynomial, the degree clamped to the stored coefficients."""
+        new_len = min(degree + 1, self.coeffs.shape[-1])
+        return Polynomial(self.coeffs[:, :new_len], new_len - 1)
+
+    def reverse(self):
+        """rev(f)(X) = X^deg * f(1/X) (polynomial.rs:112-115)."""
+        return Polynomial(torch.flip(self.trimmed(), dims=(-1,)), self.degree)
+
+    def lead(self) -> int:
+        """Leading coefficient as an int (polynomial.rs:127-129)."""
+        return FR.decode(self.coeffs[:, self.degree:self.degree + 1])[0]
+
+    def constant(self) -> int:
+        """Constant term as an int (polynomial.rs:131-133)."""
+        return FR.decode(self.coeffs[:, 0:1])[0]
+
     def to_ints(self):
         return FR.decode(self.trimmed())
+
+    # ---- arithmetic ------------------------------------------------------------
+
+    def __add__(self, other):
+        n = max(self.num_coeffs(), other.num_coeffs())
+        return Polynomial(FR.add(_pad_to(self.trimmed(), n), _pad_to(other.trimmed(), n)), n - 1)
+
+    def __sub__(self, other):
+        n = max(self.num_coeffs(), other.num_coeffs())
+        return Polynomial(FR.sub(_pad_to(self.trimmed(), n), _pad_to(other.trimmed(), n)), n - 1)
+
+    def __mul__(self, other):
+        return self.best_mul(other)
+
+    def scalar_mul(self, s):
+        """Multiply by a scalar given as an int or an (8, 1) word tensor."""
+        if isinstance(s, int):
+            return Polynomial(FR.mul_const(self.coeffs, FR.encode([s])[:, 0]), self.degree)
+        return Polynomial(FR.mul(self.coeffs, s), self.degree)
+
+    def best_mul(self, other):
+        """NTT multiplication at every size (the reference dispatches
+        naive-vs-FFT at 128 coefficients, polynomial.rs:185-191)."""
+        out_len = self.num_coeffs() + other.num_coeffs() - 1
+        return Polynomial(_mul_ntt(self.trimmed(), other.trimmed(), out_len), out_len - 1)
+
+    def naive_mul(self, other):
+        c = _mul_naive(self.trimmed(), other.trimmed())
+        return Polynomial(c, self.degree + other.degree)
 
     def eval(self, x):
         """Evaluate at one point: int -> int, or (8, 1) tensor -> (8, 1)."""
@@ -107,6 +258,40 @@ class Polynomial:
             pt = torch.from_numpy(FR.encode([x])).to(self.device)
             return FR.decode(_eval_many(self.trimmed(), pt))[0]
         return _eval_many(self.trimmed(), x)
+
+    def eval_many(self, pts):
+        """Evaluate at (8, k) points -> (8, k) (multi_eval parity,
+        polynomial.rs:229-233). Large k on large polynomials goes through
+        the remainder tree; otherwise the direct chunked power method."""
+        k = pts.shape[-1]
+        if k >= 64 and self.num_coeffs() * k >= (1 << 22):
+            from .subproduct import multi_eval_tree
+
+            return multi_eval_tree(self, pts)
+        return _eval_many(self.trimmed(), pts)
+
+    def multi_eval(self, pts):
+        """Reference name of eval_many (polynomial.rs:229-233)."""
+        return self.eval_many(pts)
+
+    def long_division(self, divisor):
+        """(quotient, remainder or None): None iff the division is exact.
+        Quotients longer than newton_div_threshold use reversal + Newton
+        inverse (poly/newton.py), shorter ones the schoolbook loop."""
+        from ..config import get_config
+
+        nf, nd = self.num_coeffs(), divisor.num_coeffs()
+        if nf - nd + 1 > get_config().newton_div_threshold:
+            from .newton import newton_divmod
+
+            q, r = newton_divmod(self.trimmed(), divisor.trimmed(), nf, nd)
+        else:
+            q, r = _long_division(self.trimmed(), divisor.trimmed(), nf, nd)
+        qp = Polynomial(q, max(0, self.degree - divisor.degree))
+        rp = Polynomial(r).fixup_degree()
+        if rp.is_zero():
+            return qp, None
+        return qp, rp
 
     def div_by_linear(self, x: int, want_rem: bool = True):
         """Divide by (X - x); returns (quotient, remainder int or None).
@@ -116,5 +301,24 @@ class Polynomial:
         qp = Polynomial(q[:, 0, :], max(0, self.degree - 1))
         return qp, (FR.decode(rem)[0] if want_rem else None)
 
+    def __eq__(self, other):
+        """Mathematical equality of the padded coefficients (tracked degrees
+        may differ: add / sub do not fix the degree up)."""
+        n = max(self.num_coeffs(), other.num_coeffs())
+        return bool(FR.eq(_pad_to(self.trimmed(), n), _pad_to(other.trimmed(), n)).all())
+
+    __hash__ = None
+
     def __repr__(self):
         return f"Polynomial(degree={self.degree})"
+
+
+def op_tree(size: int, get_elem, op):
+    """Balanced binary fold (reference op_tree, polynomial.rs:367-392)."""
+    assert size > 0
+    if size == 1:
+        return get_elem(0)
+    half = size // 2
+    left = op_tree(half, get_elem, op)
+    right = op_tree(size - half, lambda i: get_elem(half + i), op)
+    return op(left, right)

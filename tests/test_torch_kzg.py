@@ -6,7 +6,13 @@
   * the coeff_2e10 golden vector of tests/vectors.json: commitment and
     witness bytes, verify_eval accepts, and rejects a tampered y;
     verify_poly accepts the commitment;
-  * csprng_setup yields a power ladder (checked with one pairing).
+  * csprng_setup yields a power ladder (checked with one pairing);
+  * the batched opening on the same carried-across SRS (its G2 powers are
+    now used on the device, by msm_g2): the batched_2e8_k16 golden vector
+    (commitment, witness, h^Z and g^r bytes), verify_eval_batched accepts
+    and rejects other xs, bad ys raise, k + 1 past the G2 powers raises,
+    and the coset division's on-coset fallback (one x = 7 omega^i) against
+    host-int quotients.
 Tolerance 0 throughout.
 """
 
@@ -21,17 +27,35 @@ import torch
 from kzg_tpu.kzg import srs as jsrs
 from kzg_tpu_torch.constants import R
 from kzg_tpu_torch.curve import G1, g1_from_device, g2_from_device
+from kzg_tpu_torch.fields import FR
 from kzg_tpu_torch.fields.limb import unpack16
 from kzg_tpu_torch.hostcrypto import multi_pairing_check
-from kzg_tpu_torch.kzg import KZGParams, KZGProver, KZGVerifier, PointNotOnPolynomial
-from kzg_tpu_torch.kzg.coeff_form import g1_compressed
+from kzg_tpu_torch.kzg import (
+    BatchedPointsNotOnPolynomial,
+    KZGParams,
+    KZGProver,
+    KZGVerifier,
+    PointNotOnPolynomial,
+    PolynomialDegreeTooLarge,
+)
+from kzg_tpu_torch.kzg.coeff_form import g1_compressed, g2_compressed
 from kzg_tpu_torch.kzg.srs import csprng_setup, setup
+from kzg_tpu_torch.msm import msm_g1, msm_g2
+from kzg_tpu_torch.ntt import Domain
 from kzg_tpu_torch.oracle import ec_neg, g1_generator, g2_generator
-from kzg_tpu_torch.poly import Polynomial
+from kzg_tpu_torch.poly import Polynomial, lagrange_interpolation, vanishing_poly
 
 VEC = json.load(open(os.path.join(os.path.dirname(__file__), "vectors.json")))
 SECRET = int(VEC["secret"], 16)
 GOLD = VEC["configs"]["coeff_2e10"]
+BATCHED = VEC["configs"]["batched_2e8_k16"]
+
+
+def _eval(coeffs, x):
+    y = 0
+    for c in reversed(coeffs):
+        y = (y * x + c) % R
+    return y
 
 
 @pytest.fixture(scope="module")
@@ -119,3 +143,78 @@ def test_eval_and_division_against_host_ints():
             acc = (acc * x + c) % R
             want.append(acc)
         assert q.to_ints() == want[::-1]
+
+
+@pytest.fixture(scope="module")
+def batched():
+    """The batched_2e8_k16 inputs: the generator consumed the coeff_2e10
+    stream first (n coefficients and x), so replay it."""
+    rng = random.Random(VEC["seed"])
+    for _ in range(GOLD["n"] + 1):
+        rng.randrange(R)
+    coeffs = [rng.randrange(R) for _ in range(BATCHED["n"])]
+    xs = [rng.randrange(R) for _ in range(BATCHED["k"])]
+    assert [hex(x) for x in xs] == BATCHED["xs"]
+    return coeffs, xs, [_eval(coeffs, x) for x in xs]
+
+
+def test_golden_batched_2e8_k16(params, batched):
+    """On the SRS built by the JAX package's host setup and carried across
+    (its first 256 G1 and 17 G2 powers)."""
+    coeffs, xs, ys = batched
+    poly = Polynomial.from_ints(coeffs)
+    prover = KZGProver(params)
+    commitment = prover.commit(poly)
+    assert g1_compressed(commitment).hex() == BATCHED["commit"]
+    bw = prover.create_witness_batched(poly, xs, ys)
+    assert g1_compressed(bw.w).hex() == BATCHED["witness"]
+    assert bw.r.degree == len(xs) - 1
+    assert [_eval(bw.r.to_ints(), x) for x in xs] == ys
+    z = vanishing_poly(torch.from_numpy(FR.encode(xs)))
+    hz = msm_g2(tuple(t[..., : z.num_coeffs()] for t in params.hs), z.trimmed())
+    assert g2_compressed(hz).hex() == BATCHED["h_z"]
+    gr = msm_g1(tuple(t[..., : bw.r.num_coeffs()] for t in params.gs), bw.r.trimmed())
+    assert g1_compressed(gr).hex() == BATCHED["g_r"]
+    verifier = KZGVerifier(params)
+    assert verifier.verify_eval_batched(commitment, bw, xs)
+    other = list(xs)
+    other[3] = (other[3] + 1) % R
+    assert not verifier.verify_eval_batched(commitment, bw, other)
+
+
+def test_batched_errors(batched):
+    coeffs, xs, ys = batched
+    small = setup(SECRET, 4)
+    poly = Polynomial.from_ints(coeffs[:4])
+    ys4 = [_eval(coeffs[:4], x) for x in xs[:4]]
+    bad = list(ys4)
+    bad[2] = (bad[2] + 1) % R
+    with pytest.raises(BatchedPointsNotOnPolynomial):
+        KZGProver(small).create_witness_batched(poly, xs[:4], bad)
+    # 4 points need 5 G2 powers; this setup has 4 (checked before any MSM)
+    bw = KZGProver(small).create_witness_batched(poly, xs[:4], ys4, check=False)
+    with pytest.raises(PolynomialDegreeTooLarge):
+        KZGVerifier(small).verify_eval_batched(G1.infinity(), bw, xs[:4])
+
+
+def test_exact_div_on_coset_fallback():
+    """One batch point on the coset 7 * <omega_64> forces the long-division
+    fallback (39 quotient terms: the Newton branch); the coset-division path
+    and the device-side coset test give the same quotient when no point is
+    on the coset."""
+    rs = np.random.default_rng(22)
+    f = [int.from_bytes(rs.bytes(32), "little") % R for _ in range(40)]
+    dom = Domain(6)  # 40 coefficients -> the 2^6 domain
+    for xs in ([7 * pow(dom.omega, 5, R) % R, 12345], [54321, 12345]):
+        ys = [_eval(f, x) for x in xs]
+        xs_d = torch.from_numpy(FR.encode(xs))
+        numerator = Polynomial.from_ints(f) - lagrange_interpolation(
+            xs_d, torch.from_numpy(FR.encode(ys))
+        )
+        z = vanishing_poly(xs_d)
+        want = [_eval(numerator.to_ints(), t) * pow(_eval(z.to_ints(), t), -1, R) % R
+                for t in (3, 5)]
+        for xs_int in (xs, None):
+            q = KZGProver._exact_div(numerator, z, xs_int=xs_int)
+            assert q.degree == 37
+            assert [_eval(q.to_ints(), t) for t in (3, 5)] == want
