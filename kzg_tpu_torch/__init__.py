@@ -6,8 +6,10 @@ torch and never JAX, directly or through `kzg_tpu`: the host-only modules it
 needs (constants, oracle, native engine binding, serialization) are copies.
 Field elements are (W, *batch) int32 tensors of 32-bit Montgomery words
 (fields/limb.py); the Pallas kernels of the ported paths (the single and
-batched coefficient-form openings) are CUDA kernels in `csrc/`, built at
-first use (kernels.py).
+batched coefficient-form openings, the evaluation-form path with its
+Lagrange SRS) are CUDA kernels in `csrc/`, built at first use (kernels.py).
+Constructors place tensors on `config.device`, the card by default; a CPU
+run asks for it (`configure(device="cpu")`).
 """
 
 __version__ = "0.1.0"

@@ -1,31 +1,28 @@
 """Curve instances and host converters (port of `kzg_tpu/curve/__init__.py`).
 
-`G1` is the group law over `FP` whose batch point ops run as kernels K2-K4
-on CUDA tensors (and as their plain twins on CPU tensors); its remaining
-formulas (`madd`, `to_affine`, `eq`) are tensor code over K1 field math.
-`G2` is the group law over Fp2 (`Fp2Adapter(FP)`): its `add` / `dbl` run
-as the Fp2 instantiation of K2, the rest over K1. G2 coordinates are
-(12, 2, *batch) words, c0 then c1 on axis 1.
+`G1` is the group law over `FP` whose batch point ops (`add`, `dbl`, `madd`,
+`madd_multi`, `bucket_accumulate`, `window_join`) run as kernels K2-K4, K6
+and K7 on CUDA
+tensors (and as their plain twins on CPU tensors); its remaining formulas
+(`to_affine`, `eq`, the ladders' glue) are tensor code over K1 field math.
+`G2` is the same over Fp2 (`Fp2Adapter(FP)`), on the Fp2 instantiations of
+those kernels. G2 coordinates are (12, 2, *batch) words, c0 then c1 on
+axis 1.
 """
 
 import numpy as np
 import torch
 
+from ..config import resolve_device
 from ..constants import G1_GEN, G2_GEN
 from ..fields import FP
 from . import cuda_ops
 from .ops import CurveOps, Fp2Adapter
 
 
-class _G1(CurveOps):
-    """G1 with the point kernels behind add / dbl / bucket_accumulate /
-    window_join."""
-
-    def add(self, p, q):
-        return cuda_ops.add(p, q)
-
-    def dbl(self, p):
-        return cuda_ops.dbl(p)
+class _KernelCurve(CurveOps):
+    """A curve whose bucket kernels (K3, K4; G1 or G2 by the shapes they are
+    given) stand behind bucket_accumulate / window_join."""
 
     def bucket_accumulate(self, rows, order, start, count):
         return cuda_ops.bucket_accumulate(rows, order, start, count)
@@ -34,12 +31,27 @@ class _G1(CurveOps):
         return cuda_ops.horner_join(s_all, c)
 
 
+class _G1(_KernelCurve):
+    """G1 with the point kernels behind add / dbl / madd / madd_multi."""
+
+    def add(self, p, q):
+        return cuda_ops.add(p, q)
+
+    def dbl(self, p):
+        return cuda_ops.dbl(p)
+
+    def madd(self, p, q_affine, q_inf):
+        return cuda_ops.madd(p, q_affine, q_inf)
+
+    def madd_multi(self, acc, q_affine, skip, neg=None):
+        return cuda_ops.madd_multi(acc, q_affine, skip, neg)
+
+
 G1 = _G1(FP, name="G1")
 
 
-class _G2(CurveOps):
-    """G2 with the Fp2 point kernels behind add / dbl (no bucket kernels
-    yet: `msm.msm_g2` takes only the ladder)."""
+class _G2(_KernelCurve):
+    """G2 with the Fp2 point kernels behind add / dbl / madd / madd_multi."""
 
     def add(self, p, q):
         return cuda_ops.g2_add(p, q)
@@ -47,13 +59,20 @@ class _G2(CurveOps):
     def dbl(self, p):
         return cuda_ops.g2_dbl(p)
 
+    def madd(self, p, q_affine, q_inf):
+        return cuda_ops.g2_madd(p, q_affine, q_inf)
+
+    def madd_multi(self, acc, q_affine, skip, neg=None):
+        return cuda_ops.g2_madd_multi(acc, q_affine, skip, neg)
+
 
 FP2 = Fp2Adapter(FP)
 G2 = _G2(FP2, name="G2")
 
 
 def _tensor(words_np: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(words_np).to(device)
+    """Host words on `device` (None: the configured default device)."""
+    return torch.from_numpy(words_np).to(resolve_device(device))
 
 
 # ---- host converters (oracle <-> device) ---------------------------------------

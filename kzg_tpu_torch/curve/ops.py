@@ -220,6 +220,21 @@ class CurveOps:
         out = self.select(q_inf, p, out)
         return out
 
+    def madd_multi(self, acc, q_affine, skip, neg=None):
+        """S bucket-loop steps in sequence: acc += q_affine[s] for s = 0 ..
+        S - 1 under per-(step, lane) masks (the step loop of
+        `kzg_tpu/curve/pallas_ops.py:838-859`). acc is a Jacobian batch of
+        shape `batch`; q_affine = (qx, qy) with a step axis before the batch
+        axes, (W[, 2], S, *batch); skip / neg are (S, *batch) bool: skip
+        keeps the lane, neg adds -q = (x, -y)."""
+        bd = self.f.bdim
+        for s in range(skip.shape[0]):
+            x2, y2 = q_affine[0].select(bd, s), q_affine[1].select(bd, s)
+            if neg is not None:
+                y2 = torch.where(self.f.expand(neg[s]), self.f.neg(y2), y2)
+            acc = self.madd(acc, (x2, y2), skip[s])
+        return acc
+
     # ---- scalar multiplication and joins -----------------------------------------
 
     def scalar_mul_bits(self, p, bits):
@@ -230,6 +245,43 @@ class CurveOps:
         for i in range(bits.shape[0]):
             acc = self.select(bits[i] != 0, self.add(acc, base), acc)
             base = self.dbl(base)
+        return acc
+
+    def scalar_mul_digits(self, p, digits, c: int):
+        """p * k by a windowed MSB-first ladder (`kzg_tpu/curve/ops.py:
+        316-374`): digits (W, *batch) integers in [0, 2^c), digits[0] the
+        MOST significant window.
+
+        Builds the 2^c - 1 multiples of p (one `add` per entry, stacked on a
+        table axis after the word axes), normalises the table with one
+        batched `to_affine`, then runs W rounds of c doublings and one
+        skip-masked `madd` with the table entry each lane's digit selects.
+        Digit 0 lanes read a clamped entry and are skipped; every multiple
+        of an infinite p is infinite, so those lanes are skipped too."""
+        if c < 1:
+            raise ValueError("window must be >= 1")
+        bd = self.f.bdim
+        t_count = (1 << c) - 1
+        multiples = [p]
+        for _ in range(t_count - 1):
+            multiples.append(self.add(multiples[-1], p))
+        stacked = tuple(torch.stack([m[i] for m in multiples], dim=bd) for i in range(3))
+        tx, ty, _ = self.to_affine(stacked)  # (W[, 2], T, *batch)
+        p_inf = self.is_inf(p)
+        digits = digits.to(torch.int64)
+
+        def sel(tab, d):
+            idx = (d - 1).clamp(0, t_count - 1)
+            idx = idx.reshape((1,) * (bd + 1) + tuple(idx.shape))
+            idx = idx.expand(tab.shape[:bd] + (1,) + tab.shape[bd + 1:])
+            return torch.gather(tab, bd, idx).squeeze(bd)
+
+        acc = self.infinity(digits.shape[1:], p[0].device)
+        for w in range(digits.shape[0]):
+            for _ in range(c):
+                acc = self.dbl(acc)
+            d = digits[w]
+            acc = self.madd(acc, (sel(tx, d), sel(ty, d)), (d == 0) | p_inf)
         return acc
 
     def window_join(self, s_all, c: int):

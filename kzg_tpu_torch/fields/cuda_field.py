@@ -215,6 +215,33 @@ def mul_const(field, a: torch.Tensor, c_words: np.ndarray) -> torch.Tensor:
     return out
 
 
+# ---- standalone entries over K1 ------------------------------------------------------
+#
+# `make_mul` / `make_add` / `make_sub` of `kzg_tpu/fields/pallas_field.py:
+# 312,367,377`: each returns the two-operand function of one field, which
+# launches K1 on CUDA tensors and runs the plain twin on CPU tensors.
+
+def _make_binary(field, op: int, name: str):
+    def fn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return binary(field, op, a, b)
+
+    fn.__name__ = name
+    fn.__doc__ = f"Elementwise Montgomery {name} over {field.name} words, (W, *batch)."
+    return fn
+
+
+def make_mul(field):
+    return _make_binary(field, MUL, "mul")
+
+
+def make_add(field):
+    return _make_binary(field, ADD, "add")
+
+
+def make_sub(field):
+    return _make_binary(field, SUB, "sub")
+
+
 # ---- K5: one NTT butterfly stage ----------------------------------------------------
 
 _K5 = kernels.REGISTRY["ntt_stage"]

@@ -24,6 +24,7 @@ ring ops are the plain version on every device (the reference that
 import numpy as np
 import torch
 
+from ..config import resolve_device
 from . import cuda_field
 from .cuda_field import pack16, unpack16  # noqa: F401  (layout converters)
 
@@ -87,14 +88,17 @@ class LimbField:
     # ---- constructors --------------------------------------------------------
 
     def _col(self, words_np: np.ndarray, batch_ndim: int, device) -> torch.Tensor:
-        t = torch.from_numpy(words_np.copy()).to(device)
+        t = torch.from_numpy(words_np.copy()).to(resolve_device(device))
         return t.reshape((self.W,) + (1,) * batch_ndim)
 
     def zeros(self, batch_shape=(), device=None) -> torch.Tensor:
-        return torch.zeros((self.W,) + tuple(batch_shape), dtype=DTYPE, device=device)
+        """Zeros on `device` (None: the configured default device)."""
+        return torch.zeros((self.W,) + tuple(batch_shape), dtype=DTYPE,
+                           device=resolve_device(device))
 
     def one(self, batch_shape=(), device=None) -> torch.Tensor:
-        """Montgomery one, broadcast to a batch shape (a contiguous copy)."""
+        """Montgomery one, broadcast to a batch shape (a contiguous copy),
+        on `device` (None: the configured default device)."""
         col = self._col(self.one_mont_words, len(batch_shape), device)
         return col.expand((self.W,) + tuple(batch_shape)).contiguous()
 

@@ -19,14 +19,18 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "kzg_tpu_torch"
-SOURCES = ("field_kernels.cu", "point_kernels.cu", "ntt_kernels.cu")
-HEADERS = ("field.cuh",)
+SOURCES = ("field_kernels.cu", "point_kernels.cu", "ntt_kernels.cu",
+           "point_g2_kernels.cu", "madd_g2_kernels.cu", "madd_multi_g2_kernels.cu",
+           "msm_g2_kernels.cu", "horner_g2_kernels.cu")
+HEADERS = ("field.cuh", "point.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -56,17 +60,32 @@ REGISTRY = {
                "kzg_tpu/curve/pallas_ops.py:712"),
         Kernel("g1_dbl", "kzg_tpu_torch/csrc/point_kernels.cu",
                "kzg_tpu/curve/pallas_ops.py:707"),
-        Kernel("bucket_accumulate", "kzg_tpu_torch/csrc/point_kernels.cu",
+        Kernel("g1_bucket_accumulate", "kzg_tpu_torch/csrc/point_kernels.cu",
                "kzg_tpu/curve/pallas_ops.py:388"),
-        Kernel("horner_join", "kzg_tpu_torch/csrc/point_kernels.cu",
+        Kernel("g1_horner_join", "kzg_tpu_torch/csrc/point_kernels.cu",
                "kzg_tpu/curve/pallas_ops.py:590"),
         Kernel("ntt_stage", "kzg_tpu_torch/csrc/ntt_kernels.cu",
                "kzg_tpu/fields/pallas_field.py:346"),
         # the ncomp=2 (Fp2) instantiations of _PointKernels.add / .dbl
-        Kernel("g2_add", "kzg_tpu_torch/csrc/point_kernels.cu",
+        Kernel("g2_add", "kzg_tpu_torch/csrc/point_g2_kernels.cu",
                "kzg_tpu/curve/pallas_ops.py:712"),
-        Kernel("g2_dbl", "kzg_tpu_torch/csrc/point_kernels.cu",
+        Kernel("g2_dbl", "kzg_tpu_torch/csrc/point_g2_kernels.cu",
                "kzg_tpu/curve/pallas_ops.py:707"),
+        # _PointKernels.madd, ncomp=1 and 2
+        Kernel("g1_madd", "kzg_tpu_torch/csrc/point_kernels.cu",
+               "kzg_tpu/curve/pallas_ops.py:270"),
+        Kernel("g2_madd", "kzg_tpu_torch/csrc/madd_g2_kernels.cu",
+               "kzg_tpu/curve/pallas_ops.py:270"),
+        # _PointKernels.madd_multi, ncomp=1 and 2
+        Kernel("g1_madd_multi", "kzg_tpu_torch/csrc/point_kernels.cu",
+               "kzg_tpu/curve/pallas_ops.py:275"),
+        Kernel("g2_madd_multi", "kzg_tpu_torch/csrc/madd_multi_g2_kernels.cu",
+               "kzg_tpu/curve/pallas_ops.py:275"),
+        # the ncomp=2 instantiations of bucket_accumulate / horner_join
+        Kernel("g2_bucket_accumulate", "kzg_tpu_torch/csrc/msm_g2_kernels.cu",
+               "kzg_tpu/curve/pallas_ops.py:388"),
+        Kernel("g2_horner_join", "kzg_tpu_torch/csrc/horner_g2_kernels.cu",
+               "kzg_tpu/curve/pallas_ops.py:590"),
     )
 }
 
@@ -101,7 +120,8 @@ def source_digest() -> str:
 def build() -> Path:
     """Compile the kernels unless this exact source set is already built.
     Returns the library path; the compiler's `-Xptxas -v` report (registers,
-    spills) of every source is kept beside it as `ptxas.log`."""
+    spills) of every source, headed by the seconds its nvcc process took,
+    is kept beside it as `ptxas.log`."""
     out_dir = BUILD_ROOT / source_digest()
     lib = out_dir / LIB_NAME
     if lib.exists():
@@ -112,13 +132,20 @@ def build() -> Path:
     objs = [out_dir / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
     cmds = [[nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", str(o)]
             for s, o in zip(SOURCES, objs)]
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for c in cmds]
-    logs = [p.communicate()[0] for p in procs]
-    (out_dir / "ptxas.log").write_text("".join(logs))
-    for cmd, p, log in zip(cmds, procs, logs):
-        if p.returncode != 0:
-            raise KernelError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{log}")
+
+    def compile_one(cmd):
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        return res, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=len(cmds)) as pool:  # one nvcc process each
+        done = list(pool.map(compile_one, cmds))
+    (out_dir / "ptxas.log").write_text(
+        "".join(f"nvcc seconds {s}: {dt:.1f}\n{res.stdout}"
+                for s, (res, dt) in zip(SOURCES, done)))
+    for cmd, (res, _) in zip(cmds, done):
+        if res.returncode != 0:
+            raise KernelError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stdout}")
     tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
     cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp),
            *map(str, objs)]
@@ -156,6 +183,15 @@ _SIGNATURES = {
     "kzg_g1_bucket_accumulate": (_P,) * 7 + (_I, _I, _N, _P),
     # (ox, oy, oz, sx, sy, sz, windows, c, stream)
     "kzg_g1_horner_join": (_P,) * 6 + (_I, _I, _P),
+    # G2: rows (n, 48), outputs (12, 2, W, B) / (12, 2)
+    "kzg_g2_bucket_accumulate": (_P,) * 7 + (_I, _I, _N, _P),
+    "kzg_g2_horner_join": (_P,) * 6 + (_I, _I, _P),
+    # (ox, oy, oz, x1, y1, z1, x2, y2, skip bytes, n, stream)
+    "kzg_g1_madd": (_P,) * 9 + (_N, _P),
+    "kzg_g2_madd": (_P,) * 9 + (_N, _P),
+    # (ox, oy, oz, ax, ay, az, qx, qy, skip bytes, neg bytes, steps, n, stream)
+    "kzg_g1_madd_multi": (_P,) * 10 + (_I, _N, _P),
+    "kzg_g2_madd_multi": (_P,) * 10 + (_I, _N, _P),
 }
 
 

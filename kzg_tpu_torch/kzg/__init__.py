@@ -1,5 +1,5 @@
-"""KZG protocol layer of the port: setup and the coefficient-form prover and
-verifier. Exports resolve lazily, as in `kzg_tpu/kzg/__init__.py`."""
+"""KZG protocol layer of the port: setup, the coefficient-form and the
+evaluation-form prover and verifier. Exports resolve lazily, as in `kzg_tpu/kzg/__init__.py`."""
 
 _EXPORTS = {
     "KZGError": "errors",
@@ -12,6 +12,14 @@ _EXPORTS = {
     "KZGProver": "coeff_form",
     "KZGVerifier": "coeff_form",
     "KZGBatchWitness": "coeff_form",
+    "LagrangeSRS": "eval_form",
+    "KZGProverEvalForm": "eval_form",
+    "KZGVerifierEvalForm": "eval_form",
+    "KZGBatchWitnessEvalForm": "eval_form",
+    "compute_lagrange_basis": "eval_form",
+    "compute_lagrange_basis_from_secret": "eval_form",
+    "compute_lagrange_basis_and_polynomials": "eval_form",
+    "lagrange_polynomials": "eval_form",
 }
 
 __all__ = list(_EXPORTS)

@@ -20,6 +20,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..config import resolve_device
 from ..constants import R
 from ..curve import g1_to_device, g2_to_device
 from ..fields.limb import pack16, unpack16
@@ -31,7 +32,12 @@ def _to_limbs16(words: torch.Tensor) -> np.ndarray:
 
 
 def _from_limbs16(limbs: np.ndarray, device) -> torch.Tensor:
-    return pack16(torch.from_numpy(limbs.astype(np.int64))).to(device)
+    return pack16(torch.from_numpy(limbs.astype(np.int64))).to(resolve_device(device))
+
+
+def _mask(flags, device) -> torch.Tensor:
+    """A bool infinity mask on `device` (None: the configured default)."""
+    return torch.from_numpy(np.asarray(flags, dtype=bool)).to(resolve_device(device))
 
 
 @dataclass
@@ -57,13 +63,13 @@ class KZGParams:
     def from_numpy(cls, gs_np, hs_np, n: int, device=None) -> "KZGParams":
         """From the JAX package's arrays: gs_np = ((24, n) x, (24, n) y,
         (n,) inf) and hs_np = ((24, 2, n) x, (24, 2, n) y, (n,) inf), limbs
-        as uint32 16-bit values."""
+        as uint32 16-bit values. device=None: the configured default."""
         gs = (_from_limbs16(np.asarray(gs_np[0]), device),
               _from_limbs16(np.asarray(gs_np[1]), device),
-              torch.from_numpy(np.asarray(gs_np[2], dtype=bool)).to(device))
+              _mask(gs_np[2], device))
         hs = (_from_limbs16(np.asarray(hs_np[0]), device),
               _from_limbs16(np.asarray(hs_np[1]), device),
-              torch.from_numpy(np.asarray(hs_np[2], dtype=bool)).to(device))
+              _mask(hs_np[2], device))
         return cls(gs=gs, hs=hs, n=int(n))
 
     @classmethod
@@ -97,14 +103,15 @@ def _setup_host(s: int, num_coeffs: int, device=None) -> KZGParams:
     hpts = _powers_parallel(native.g2_mul, native.g2_powers, g2_generator(), s, num_coeffs)
     gx, gy, _ = g1_to_device(gpts, device)
     hx, hy, _ = g2_to_device(hpts, device)
-    ginf = torch.tensor([p is None for p in gpts], device=device)
-    hinf = torch.tensor([p is None for p in hpts], device=device)
+    ginf = _mask([p is None for p in gpts], device)
+    hinf = _mask([p is None for p in hpts], device)
     return KZGParams(gs=(gx, gy, ginf), hs=(hx, hy, hinf), n=num_coeffs)
 
 
 def setup(s: int, num_coeffs: int, device=None) -> KZGParams:
     """Build an SRS for polynomials with up to num_coeffs coefficients from
-    the secret s (reference setup(), lib.rs:38-55), on `device`."""
+    the secret s (reference setup(), lib.rs:38-55), on `device` (None: the
+    configured default device, the card)."""
     return _setup_host(s, num_coeffs, device)
 
 

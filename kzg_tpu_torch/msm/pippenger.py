@@ -1,35 +1,42 @@
-"""Pippenger multi-scalar multiplication over G1, and the small G2 MSM
-(port of `kzg_tpu/msm/pippenger.py`, the `msm_impl="runs"` structure).
+"""Pippenger multi-scalar multiplication over G1 and G2 (port of
+`kzg_tpu/msm/pippenger.py`, the `msm_impl="runs"` structure).
 
   * scalars are cut into c-bit window digits (`_digits`);
   * per window, points are stably sorted by digit (`torch.argsort`) so each
     bucket's points form one run of the sort order; `torch.searchsorted`
     finds every run; points at infinity are forced into bucket 0, and
     bucket 0's count is zeroed;
-  * kernel K3 accumulates every bucket of every window in ONE launch;
+  * the buckets are accumulated as the reference's `msm_impl="runs"` does:
+    with 1024 buckets a window or more (c >= 10, from 2^15 points), kernel
+    K3 accumulates every bucket of every window in ONE launch; with fewer
+    (`:480-481`), the reference's v1 bucket loop (`:234-345`) runs on
+    kernel K7, `madd_multi`: step k adds the k-th point of every bucket's
+    run, `msm_fuse_steps` steps to a launch (`_bucket_loop`);
   * the bucket reduction sum_b b * B_b (`weighted_bucket_sum`) and the
     point sums are the pairwise tree forms of the JAX package's kernel path
     (`:159-231`), on kernel K2;
   * kernel K4 joins the windows (Horner, MSB first).
 
-Deviations from the reference, both because a CUDA thread per bucket has
-no TPU block to fill:
-  * the runs structure serves EVERY n >= small_msm_threshold. The reference
-    falls back below 1024 buckets (c < 10, e.g. 2^10 points at c = 5) to
-    its v1 bucket loop with `madd_multi` (`:480-481`), because its kernel
-    needs one whole 1024-lane block of buckets.
-  * no capped-trip segmented-scan fallback (`:546-571`). On the TPU a grid
-    block runs to the maximum trip count of its buckets, so skewed digits
-    cost the whole block; on the GPU a skewed bucket only slows its own
-    thread, never the result.
+Deviations from the reference:
+  * the bucket loop advances the buckets of ALL windows together (the
+    reference scans the windows one by one, a window's 128 to 512 buckets
+    to a launch), and gathers its points through the sort order from the
+    one row table instead of from rows permuted per window. Points at
+    infinity get digit 0, as in the runs structure, so the rows carry no
+    infinity column.
+  * no capped-trip segmented-scan fallback (`:262,309-340`, `:546-571`). On
+    the TPU a grid block runs to the maximum trip count of its buckets, so
+    skewed digits cost the whole block; on the GPU a skewed bucket only
+    slows its own thread, never the result. The bucket loop pays for skew
+    in launches: its trip count is the fullest bucket's.
 Below small_msm_threshold points a batched double-and-add ladder on K2 plus
 a tree sum is used (`_msm_small`), as in the reference. MSMs are not chunked
 above 2^msm_chunk_log points yet (the reference's `:818-833`).
 
-G2 (`msm_g2`) has only that ladder (G2 `add` / `dbl` kernels): the Fp2
-bucket kernels (`bucket_accumulate` / `horner_join` with ncomp = 2) are not
-ported yet, so a G2 MSM of small_msm_threshold points or more raises
-instead of running the ladder at a size the reference would bucket.
+G2 (`msm_g2`) takes the same two routes with the same window rule as the
+reference's `msm()`: the ladder below small_msm_threshold points, the
+bucket method on the Fp2 instantiations of K7 or K3, and K4, at and above
+it.
 """
 
 import math
@@ -37,7 +44,7 @@ import math
 import torch
 
 from ..config import get_config
-from ..curve import G1, G2
+from ..curve import G1, G2, cuda_ops
 from ..fields import FR
 
 
@@ -145,9 +152,11 @@ def _msm_small(curve, xa, ya, inf, scalars_std):
 
 
 def bucket_inputs(xa, ya, inf, scalars_std, c: int):
-    """The arrays kernel K3 takes for one MSM: (rows, order, start, count).
+    """The arrays kernel K3 and the bucket loop take for one MSM: (rows,
+    order, start, count).
 
-    rows (n, 24): each point's x then y words; order (W, n): each window's
+    rows (n, 24) for G1 or (n, 48) for G2 (`cuda_ops.point_rows`): each
+    point's x then y words; order (W, n): each window's
     stable sort of the points by digit; start / count (W, B): bucket b of
     window w is order[w, start : start + count]. Points at infinity get
     digit 0 and bucket 0's count is zeroed, so neither contributes."""
@@ -161,12 +170,51 @@ def bucket_inputs(xa, ya, inf, scalars_std, c: int):
     start = torch.searchsorted(ds, ids, side="left")
     count = torch.searchsorted(ds, ids, side="right") - start
     count[:, 0] = 0
-    rows = torch.cat([xa, ya], dim=0).T.contiguous()
+    rows = cuda_ops.point_rows(xa, ya)
     return rows, order.to(torch.int32), start.to(torch.int32), count.to(torch.int32)
 
 
+# K3 serves windows of at least this many buckets; smaller windows take the
+# bucket loop on K7, as in the reference (`:478-481`)
+RUNS_MIN_BUCKETS = 1024
+
+
+def loop_chunk(rows, order, start, count, k0: int, fuse: int):
+    """Steps k0 .. k0 + fuse - 1 of the bucket loop as `madd_multi` takes
+    them: the affine points (x, y) of shape (12[, 2], S, W, B), point s of
+    lane (w, b) being the (k0 + s)-th of that bucket's run (a clamped, masked
+    read past its end), and the (S, W, B) skip mask k0 + s >= count."""
+    windows, buckets = start.shape
+    n = order.shape[-1]
+    ks = (k0 + torch.arange(fuse, device=rows.device))[:, None, None]
+    pos = (start[None] + ks).clamp(max=n - 1).to(torch.int64)
+    idx = torch.gather(order.to(torch.int64).expand(fuse, windows, n), 2, pos)
+    q = cuda_ops.rows_to_affine(rows[idx.reshape(-1)], (fuse, windows, buckets))
+    return q, ks >= count[None]
+
+
+def _bucket_loop(curve, rows, order, start, count):
+    """The v1 bucket loop on K7: Jacobian bucket sums, 3 x (12[, 2], W, B),
+    from the arrays of `bucket_inputs`. Step k folds the k-th point of every
+    (window, bucket) run into its accumulator, masked where k >= count;
+    `msm_fuse_steps` steps' points are gathered at once and added by one
+    `madd_multi` launch. The trip count is the fullest bucket's (one read
+    of the device)."""
+    fuse = get_config().msm_fuse_steps
+    acc = curve.infinity(tuple(start.shape), rows.device)
+    steps = int(count.max()) if count.numel() else 0
+    for k0 in range(0, steps, fuse):
+        q, skip = loop_chunk(rows, order, start, count, k0, fuse)
+        acc = curve.madd_multi(acc, q, skip)
+    return acc
+
+
 def _msm_runs(curve, xa, ya, inf, scalars_std, c: int):
-    acc = curve.bucket_accumulate(*bucket_inputs(xa, ya, inf, scalars_std, c))
+    inputs = bucket_inputs(xa, ya, inf, scalars_std, c)
+    if (1 << c) < RUNS_MIN_BUCKETS:
+        acc = _bucket_loop(curve, *inputs)
+    else:
+        acc = curve.bucket_accumulate(*inputs)
     s_all = weighted_bucket_sum(curve, acc)  # 3 x (12, W)
     return curve.window_join(s_all, c)
 
@@ -182,12 +230,6 @@ def msm(curve, points, scalars_mont, c: int | None = None):
     if c is None:
         c = effective_window(n)
     small = n < get_config().small_msm_threshold
-    if not small and not hasattr(curve, "bucket_accumulate"):
-        raise NotImplementedError(
-            f"{curve.name} MSM of {n} >= small_msm_threshold points needs the "
-            f"{curve.name} bucket kernels (bucket_accumulate / horner_join, ncomp=2), "
-            "not ported yet: ROADMAP Queue 2"
-        )
     scalars_std = FR.from_mont(scalars_mont)
     if small:
         return _msm_small(curve, xa, ya, inf, scalars_std)

@@ -15,6 +15,7 @@ Not ported yet: the chunked linear division for the streamed witness
 
 import torch
 
+from ..config import resolve_device
 from ..fields import FR
 from ..ntt import Domain
 
@@ -136,7 +137,7 @@ class Polynomial:
     def from_ints(cls, ints, degree: int | None = None, device=None):
         if len(ints) == 0:
             ints = [0]
-        c = torch.from_numpy(FR.encode(ints)).to(device)
+        c = torch.from_numpy(FR.encode(ints)).to(resolve_device(device))
         if degree is None:
             degree = len(ints) - 1
             while degree > 0 and ints[degree] == 0:
@@ -152,7 +153,7 @@ class Polynomial:
         """Constant polynomial (polynomial.rs:56-61): an int or an (8, 1)
         word tensor."""
         if isinstance(scalar, int):
-            return cls(torch.from_numpy(FR.encode([scalar])).to(device), 0)
+            return cls(torch.from_numpy(FR.encode([scalar])).to(resolve_device(device)), 0)
         return cls(scalar, 0)
 
     @classmethod

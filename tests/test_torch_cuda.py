@@ -1,5 +1,5 @@
-"""Kernels K1-K5 and the G2 point kernels on the card against their plain
-PyTorch twins, exact; and no fallback when the kernel build fails.
+"""Kernels K1-K7 (G1 and G2) on the card against their plain PyTorch twins,
+exact; the default device; and no fallback when the kernel build fails.
 
 Needs a CUDA device and nvcc; skips elsewhere. This file imports no JAX, so
 it runs where JAX is absent:
@@ -13,9 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from kzg_tpu_torch import config, kernels
+from kzg_tpu_torch import config, kernels, native
 from kzg_tpu_torch.constants import P, R
-from kzg_tpu_torch.curve import G1, cuda_ops, g2_generator_device
+from kzg_tpu_torch.curve import G1, G2, cuda_ops, g2_from_device, g2_generator_device
 from kzg_tpu_torch.fields import FP, FR, cuda_field
 from kzg_tpu_torch.msm import msm_g2, pippenger
 from kzg_tpu_torch.ntt import Domain
@@ -148,6 +148,104 @@ def test_g2_add_dbl(dev):
     assert _equal(cuda_ops.g2_dbl(p), cuda_ops.g2_dbl_plain(p))
 
 
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_k6_madd_and_digit_ladder(dev, group):
+    """madd against its twin with skip, infinite, same and opposite lanes;
+    the digit ladder through the kernels against the ladder on the twins."""
+    if group == "g1":
+        p, _ = _points(dev, 200, 11)
+        q, _ = _points(dev, 200, 12)
+        curve, plain, kfn, pfn = G1, cuda_ops.PLAIN, cuda_ops.madd, cuda_ops.madd_plain
+    else:
+        p, q = _g2_points(dev, 200, 11), _g2_points(dev, 200, 12)
+        curve, plain, kfn, pfn = G2, cuda_ops.PLAIN2, cuda_ops.g2_madd, cuda_ops.g2_madd_plain
+    qx, qy, q_inf = plain.to_affine(q)
+    px, py, _ = plain.to_affine(p)
+    qx[..., 5], qy[..., 5] = px[..., 5], py[..., 5]  # P + P
+    qx[..., 6], qy[..., 6] = px[..., 6], plain.f.neg(py[..., 6])  # P + (-P)
+    skip = q_inf | (torch.arange(200, device=dev) % 7 == 3)
+    got = kfn(p, (qx, qy), skip)
+    assert _equal(got, pfn(p, (qx, qy), skip))
+    assert bool(curve.is_inf(got)[6]) or bool(curve.is_inf(p)[6])
+    rs = np.random.default_rng(13)
+    digits = torch.from_numpy(rs.integers(0, 8, size=(4, 200))).to(dev)
+    a = curve.scalar_mul_digits(p, digits, 3)
+    b = plain.scalar_mul_digits(p, digits, 3)
+    assert bool(curve.eq(a, b).all())
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_k7_madd_multi_and_bucket_loop(dev, group):
+    """madd_multi against its twin: 5 steps over 200 lanes with skip and neg
+    masks, an infinite accumulator lane, a same-point and an opposite-point
+    step; then the bucket loop on it against K3 on the same inputs."""
+    if group == "g1":
+        p, _ = _points(dev, 200, 21)
+        qs = [_points(dev, 200, 22 + s)[0] for s in range(5)]
+        curve, plain = G1, cuda_ops.PLAIN
+        kfn, pfn = cuda_ops.madd_multi, cuda_ops.madd_multi_plain
+    else:
+        p = _g2_points(dev, 200, 21)
+        qs = [_g2_points(dev, 200, 22 + s) for s in range(5)]
+        curve, plain = G2, cuda_ops.PLAIN2
+        kfn, pfn = cuda_ops.g2_madd_multi, cuda_ops.g2_madd_multi_plain
+    bd = plain.f.bdim
+    aff = [plain.to_affine(q) for q in qs]
+    px, py, _ = plain.to_affine(p)
+    aff[0][0][..., 5], aff[0][1][..., 5] = px[..., 5], py[..., 5]  # step 0: P + P
+    aff[0][0][..., 6], aff[0][1][..., 6] = px[..., 6], py[..., 6]  # negated below: P + (-P)
+    qx = torch.stack([a[0] for a in aff], dim=bd)
+    qy = torch.stack([a[1] for a in aff], dim=bd)
+    rs = np.random.default_rng(27)
+    skip = torch.stack([a[2] for a in aff]) | torch.from_numpy(rs.random((5, 200)) < 0.3).to(dev)
+    neg = torch.from_numpy(rs.random((5, 200)) < 0.3).to(dev)
+    skip[0, 5:7] = False
+    neg[0, 5], neg[0, 6] = False, True
+    p[2][..., 8] = 0  # an accumulator at infinity
+    for masks in ((skip, neg), (skip, None)):
+        assert _equal(kfn(p, (qx, qy), *masks), pfn(p, (qx, qy), *masks))
+    n, c = 700, 6
+    x, y, inf = plain.to_affine(_points(dev, n, 28)[0] if group == "g1" else _g2_points(dev, n, 28))
+    scal = torch.from_numpy(FR.from_ints(_ints(29, R, n))).to(dev)
+    inputs = pippenger.bucket_inputs(x, y, inf, scal, c)
+    assert _equal(pippenger._bucket_loop(curve, *inputs), cuda_ops.bucket_accumulate(*inputs))
+
+
+def test_g2_pippenger_kernels_and_msm(dev):
+    """K3 / K4 over Fp2 against their twins, and msm_g2 on both bucket
+    routes (the bucket loop on K7 below 1024 buckets a window, K3 from
+    there) against the native engine (also the [-1, 0, ..., 0, 1] vector)."""
+    n, c = 600, 5
+    x, y, inf = cuda_ops.PLAIN2.to_affine(_g2_points(dev, n, 14))
+    ints = _ints(15, R, n)
+    inputs = pippenger.bucket_inputs(x, y, inf, torch.from_numpy(FR.from_ints(ints)).to(dev), c)
+    assert inputs[0].shape == (n, 48)
+    acc = cuda_ops.bucket_accumulate(*inputs)
+    assert _equal(acc, cuda_ops.bucket_accumulate_plain(*inputs))
+    s_all = pippenger.weighted_bucket_sum(G2, acc)
+    assert _equal(cuda_ops.horner_join(s_all, c), cuda_ops.horner_join_plain(s_all, c))
+    host = g2_from_device((x, y, inf))
+    for scal, window, kernel in ((ints, None, "g2_madd_multi"),
+                                 ([R - 1] + [0] * (n - 2) + [1], None, "g2_madd_multi"),
+                                 (ints, 10, "g2_bucket_accumulate")):
+        before = kernels.launch_counts()
+        got = msm_g2((x, y, inf), torch.from_numpy(FR.encode(scal)).to(dev), window)
+        after = kernels.launch_counts()
+        assert g2_from_device(tuple(t[..., None] for t in got))[0] == native.g2_msm(host, scal)
+        assert after[kernel] > before[kernel]
+        assert after["g2_horner_join"] == before["g2_horner_join"] + 1
+
+
+def test_default_device_is_the_card(dev):
+    from kzg_tpu_torch.kzg import setup
+    from kzg_tpu_torch.poly import Polynomial
+
+    assert config.get_config().device == "cuda"
+    params = setup(5, 4)
+    assert all(t.is_cuda for t in params.gs + params.hs)
+    assert Polynomial.from_ints([1, 2, 3]).coeffs.is_cuda and FR.one((2,)).is_cuda
+
+
 def test_no_fallback_when_the_build_fails(dev, monkeypatch):
     def failed_build():
         raise kernels.KernelError("build failed")
@@ -162,7 +260,18 @@ def test_no_fallback_when_the_build_fails(dev, monkeypatch):
         cuda_ops.g2_add(p, p)
     with pytest.raises(kernels.KernelError):
         cuda_ops.g2_dbl(p)
+    skip = torch.zeros(4, dtype=torch.bool, device=dev)
+    with pytest.raises(kernels.KernelError):
+        cuda_ops.g2_madd(p, p[:2], skip)
+    g1p = tuple(t[:, 0].contiguous() for t in p)  # (12, 4) words stand in for G1 points
+    with pytest.raises(kernels.KernelError):
+        cuda_ops.madd(g1p, g1p[:2], skip)
+    q3 = tuple(t[:, :, None].expand(-1, -1, 3, -1).contiguous() for t in p[:2])
+    with pytest.raises(kernels.KernelError):
+        cuda_ops.g2_madd_multi(p, q3, torch.zeros(3, 4, dtype=torch.bool, device=dev))
+    # G2 Pippenger (512 points take the bucket route) raises too: no ladder
+    # and no twin stands in for the missing kernels
     inf = torch.zeros(512, dtype=torch.bool, device=dev)
     g = tuple(t.to(dev) for t in g2_generator_device(512))
-    with pytest.raises(NotImplementedError):
-        msm_g2((g[0], g[1], inf), FR.zeros((512,), dev))
+    with pytest.raises(kernels.KernelError):
+        msm_g2((g[0], g[1], inf), FR.one((512,), dev))

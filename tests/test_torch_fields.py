@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from kzg_tpu import fields as jf
-from kzg_tpu_torch import kernels
+from kzg_tpu_torch import config, kernels
 from kzg_tpu_torch.constants import P, R
 from kzg_tpu_torch.fields import FP, FR
 from kzg_tpu_torch.fields.limb import pack16, unpack16
@@ -23,6 +23,15 @@ from kzg_tpu_torch.fields.limb import pack16, unpack16
 FIELDS = [(FR, jf.FR, R), (FP, jf.FP, P)]
 IDS = ["Fr", "Fp"]
 N = 16
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_device():
+    """The port places tensors on the card by default; these tests run its
+    plain twins, so they ask for the CPU."""
+    old = config.get_config()
+    config.configure(device="cpu")
+    yield
+    config.set_config(old)
 
 
 def _ints(seed, mod, n=N):

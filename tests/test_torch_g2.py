@@ -5,18 +5,23 @@ kernels on CPU) against the pure-Python oracle and the native engine, exact.
     oracle's Fp2;
   * G2 add / dbl on lanes with infinity, P + P (under another Z) and
     P + (-P), against oracle point sums;
+  * G2 madd (the plain twin of K6 over Fp2) on the same lanes under skip
+    masks, G2 madd_multi (the plain twin of K7 over Fp2: three steps with
+    skip and neg masks), and the G2 digit ladder `scalar_mul_digits` at
+    c = 3, 4, 5, against the oracle / the native engine;
   * msm_g2 on the ladder (17 points, one at infinity, one zero scalar)
     against `native.g2_msm`; g2_from_device of Jacobian batches; msm_g2 at
-    small_msm_threshold points raises (no G2 bucket kernels yet).
-The `slow` case holds add / dbl limb for limb, and msm_g2 in affine form,
-against the JAX package's G2 (its XLA compiles take minutes on a CPU).
+    small_msm_threshold points takes the bucket route (G2 Pippenger is in
+    tests/test_torch_msm_g2.py).
+The `slow` case holds add / dbl / madd / madd_multi limb for limb, and msm_g2 in affine
+form, against the JAX package's G2 (its XLA compiles take minutes on a CPU).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from kzg_tpu_torch import native
+from kzg_tpu_torch import config, native
 from kzg_tpu_torch.constants import P, R
 from kzg_tpu_torch.curve import (
     FP2,
@@ -33,6 +38,15 @@ from kzg_tpu_torch.oracle import ec_add, ec_mul, ec_neg, g2_generator
 from kzg_tpu_torch.oracle.field import Fp2
 
 N = 8
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_device():
+    """The port places tensors on the card by default; these tests run its
+    plain twins, so they ask for the CPU."""
+    old = config.get_config()
+    config.configure(device="cpu")
+    yield
+    config.set_config(old)
 
 
 def _rand(rs, mod, k):
@@ -146,10 +160,86 @@ def test_g2_from_device_and_generator():
 
 
 def test_msm_g2_at_bucket_threshold_raises():
+    """At small_msm_threshold points msm_g2 used to raise for want of the
+    Fp2 bucket kernels; it now takes the bucket route and returns the sum:
+    512 copies of the generator under scalars 0, ..., 0, 3, 5 give 8 g."""
     g = g2_generator_device(512)
     inf = torch.zeros(512, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-        msm_g2((g[0], g[1], inf), FR.zeros((512,)))
+    scal = torch.from_numpy(FR.encode([0] * 510 + [3, 5]))
+    got = msm_g2((g[0], g[1], inf), scal)
+    assert got[0].shape == (FP.W, 2)
+    assert g2_from_device(tuple(t[..., None] for t in got))[0] == ec_mul(g2_generator(), 8)
+
+
+def _affine(pts):
+    """Oracle points -> affine (x, y) Fp2 tensors; None -> (1, 1)."""
+    one = Fp2.from_ints(1, 0)
+    xs = [(one if pt is None else pt[0]) for pt in pts]
+    ys = [(one if pt is None else pt[1]) for pt in pts]
+    return (_fp2_tensor([(v.a.n, v.b.n) for v in xs]), _fp2_tensor([(v.a.n, v.b.n) for v in ys]))
+
+
+@pytest.mark.parametrize("mask", ["q-infinite", "all", "even", "none-but-inf"])
+def test_g2_madd_matches_oracle(operands, mask):
+    p, _, ps, qs = operands
+    q_inf = np.array([pt is None for pt in qs])
+    skip = {"q-infinite": q_inf, "all": np.ones(N, dtype=bool),
+            "even": q_inf | (np.arange(N) % 2 == 0),
+            "none-but-inf": q_inf | (np.arange(N) == 4)}[mask]
+    out = G2.madd(p, _affine(qs), torch.from_numpy(skip))  # CPU: the plain twin
+    assert all(torch.equal(a, b) for a, b in zip(
+        out, cuda_ops.g2_madd_plain(p, _affine(qs), torch.from_numpy(skip))))
+    assert g2_from_device(out) == [a if s else ec_add(a, b) for a, b, s in zip(ps, qs, skip)]
+    for i in np.nonzero(skip)[0]:  # skipped lanes keep p word for word
+        assert all(torch.equal(o[..., i], t[..., i]) for o, t in zip(out, p))
+
+
+def _madd_multi_case(operands):
+    """Three steps over the operand lanes: + Q (lane 3 doubles, lane 4
+    cancels), - Q on two lanes in three, + P; (points, skip, neg)."""
+    _, _, ps, qs = operands
+    steps = (qs, qs, ps)
+    inf = np.array([[pt is None for pt in pts] for pts in steps])
+    skip = inf | np.array([np.zeros(N, bool), np.arange(N) % 3 == 0, np.arange(N) == 6])
+    neg = np.array([np.zeros(N, bool), np.ones(N, bool), np.arange(N) % 2 == 1])
+    q = tuple(torch.stack([_affine(pts)[i] for pts in steps], dim=2) for i in range(2))
+    return steps, q, skip, neg
+
+
+@pytest.mark.parametrize("use_neg", [True, False], ids=["neg", "no-neg"])
+def test_g2_madd_multi_matches_oracle(operands, use_neg):
+    """The fused bucket-loop step over Fp2 (plain twin of K7): (12, 2, S, n)
+    points, (S, n) masks, against oracle sums and the step-by-step madds."""
+    p, _, ps, _ = operands
+    steps, q, skip, neg = _madd_multi_case(operands)
+    neg_t = torch.from_numpy(neg) if use_neg else None
+    out = G2.madd_multi(p, q, torch.from_numpy(skip), neg_t)  # CPU: the plain twin
+    assert all(torch.equal(a, b) for a, b in zip(
+        out, cuda_ops.g2_madd_multi_plain(p, q, torch.from_numpy(skip), neg_t)))
+    want = list(ps)
+    for pts, sk, ng in zip(steps, skip, neg if use_neg else np.zeros_like(neg)):
+        want = [a if s else ec_add(a, ec_neg(b) if n_ else b)
+                for a, b, s, n_ in zip(want, pts, sk, ng)]
+    assert g2_from_device(out) == want
+
+
+@pytest.mark.parametrize("c", [3, 4, 5])
+def test_g2_scalar_mul_digits_matches_native(c):
+    """4 windows of c bits over 4 lanes: a point at infinity, a zero scalar,
+    an all-ones scalar. The table axis sits after the two word axes:
+    (12, 2, T, n)."""
+    rs = np.random.default_rng(50 + c)
+    w_count = 4
+    pts = _points(rs, 4)
+    pts[1] = None
+    scal = [int(rs.integers(1, 1 << (c * w_count))) for _ in range(4)]
+    scal[2] = 0
+    scal[3] = (1 << (c * w_count)) - 1
+    zs = [Fp2.from_ints(a, b) for a, b in zip(_rand(rs, P, 4), _rand(rs, P, 4))]
+    rows = [[(k >> (c * w)) & ((1 << c) - 1) for k in scal] for w in range(w_count - 1, -1, -1)]
+    got = g2_from_device(G2.scalar_mul_digits(_jacobian(pts, zs), torch.tensor(rows), c))
+    assert got == [None if pt is None or k == 0 else native.g2_mul(pt, k)
+                   for pt, k in zip(pts, scal)]
 
 
 def _same(port_pt, jax_pt):
@@ -170,6 +260,19 @@ def test_g2_matches_jax_limb_for_limb(operands):
     jq = tuple(jnp.asarray(unpack16(t).numpy().astype(np.uint32)) for t in q)
     _same(cuda_ops.g2_add(p, q), jcurve.G2.add(jp, jq))
     _same(cuda_ops.g2_dbl(p), jcurve.G2.dbl(jp))
+    _, _, _, qs = operands
+    skip = np.array([pt is None for pt in qs]) | (np.arange(N) == 6)
+    jqa = tuple(jnp.asarray(unpack16(t).numpy().astype(np.uint32)) for t in _affine(qs))
+    _same(cuda_ops.g2_madd(p, _affine(qs), torch.from_numpy(skip)),
+          jcurve.G2.madd(jp, jqa, jnp.asarray(skip)))
+    _, qm, skip, neg = _madd_multi_case(operands)
+    jqm = tuple(jnp.asarray(unpack16(t).numpy().astype(np.uint32)) for t in qm)
+    jacc = jp
+    for st in range(3):  # the step loop the Pallas madd_multi is held to
+        jy = jnp.where(jnp.asarray(neg[st])[None, None], jcurve.FP2A.neg(jqm[1][:, :, st]),
+                       jqm[1][:, :, st])
+        jacc = jcurve.G2.madd(jacc, (jqm[0][:, :, st], jy), jnp.asarray(skip[st]))
+    _same(cuda_ops.g2_madd_multi(p, qm, torch.from_numpy(skip), torch.from_numpy(neg)), jacc)
     rs = np.random.default_rng(4)
     pts = _points(rs, 5)
     scal = [int.from_bytes(rs.bytes(32), "little") % R for _ in range(5)]

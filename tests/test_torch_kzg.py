@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from kzg_tpu.kzg import srs as jsrs
+from kzg_tpu_torch import config
 from kzg_tpu_torch.constants import R
 from kzg_tpu_torch.curve import G1, g1_from_device, g2_from_device
 from kzg_tpu_torch.fields import FR
@@ -49,6 +50,16 @@ VEC = json.load(open(os.path.join(os.path.dirname(__file__), "vectors.json")))
 SECRET = int(VEC["secret"], 16)
 GOLD = VEC["configs"]["coeff_2e10"]
 BATCHED = VEC["configs"]["batched_2e8_k16"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_device():
+    """The port places tensors on the card by default; these tests run its
+    plain twins, so they ask for the CPU."""
+    old = config.get_config()
+    config.configure(device="cpu")
+    yield
+    config.set_config(old)
 
 
 def _eval(coeffs, x):

@@ -3,8 +3,9 @@ package's native engine MSM (`kzg_tpu.native.g1_msm`) and its pure-Python
 oracle (`kzg_tpu.oracle`), in affine form (Jacobian Z depends
 on the summation order). Tolerance 0.
 
-n = 64 takes the double-and-add ladder, n = 600 the bucket path (K3 twin,
-tree reduction, K4 twin). Each batch holds a zero scalar and a point at
+n = 64 takes the double-and-add ladder, n = 600 the bucket path (the bucket
+loop on the K7 twin at its c = 4, tree reduction, K4 twin); the route by
+bucket count is checked against the reference's threshold. Each batch holds a zero scalar and a point at
 infinity. One slow case also runs the JAX package's msm_g1, whose XLA
 compile takes minutes on a CPU, as tests/test_msm.py is marked.
 """
@@ -18,11 +19,22 @@ from kzg_tpu import native
 from kzg_tpu.fields import FR as JFR
 from kzg_tpu.msm import pippenger as jpip
 from kzg_tpu.oracle import ec_add, ec_mul, g1_generator
+from kzg_tpu_torch import config
 from kzg_tpu_torch.config import get_config
 from kzg_tpu_torch.constants import R
 from kzg_tpu_torch.curve import g1_from_device, g1_to_device
 from kzg_tpu_torch.fields import FR
 from kzg_tpu_torch.msm import msm_g1, pippenger
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_device():
+    """The port places tensors on the card by default; these tests run its
+    plain twins, so they ask for the CPU."""
+    old = config.get_config()
+    config.configure(device="cpu")
+    yield
+    config.set_config(old)
 
 
 def _case(seed, n):
@@ -71,6 +83,28 @@ def test_digits_match_jax(c):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     for k, col in zip(scal, got.T.tolist()):
         assert sum(d << (c * w) for w, d in enumerate(col)) == k
+
+
+@pytest.mark.parametrize("c,route", [(9, "loop"), (10, "runs")])
+def test_bucket_route_by_window(monkeypatch, c, route):
+    """As in the reference (`kzg_tpu/msm/pippenger.py:480`): windows of
+    fewer than 1024 buckets take the bucket loop on `madd_multi`, the others
+    the one-launch bucket kernel."""
+    from kzg_tpu_torch.curve import G1
+
+    class Taken(Exception):
+        pass
+
+    def taken(name):
+        def fn(*args, **kwargs):
+            raise Taken(name)
+        return fn
+
+    monkeypatch.setattr(pippenger, "_bucket_loop", taken("loop"))
+    monkeypatch.setattr(type(G1), "bucket_accumulate", taken("runs"))
+    (x, y, inf), scal = _device_args(*_case(3, 8))
+    with pytest.raises(Taken, match=route):
+        pippenger._msm_runs(G1, x, y, inf, FR.from_mont(scal), c)
 
 
 def test_window_choice_matches_reference():

@@ -39,6 +39,16 @@ from kzg_tpu_torch.ntt import domain as pdomain
 jconfig = importlib.import_module("kzg_tpu.config")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_device():
+    """The port places tensors on the card by default; these tests run its
+    plain twins, so they ask for the CPU."""
+    old = config.get_config()
+    config.configure(device="cpu")
+    yield
+    config.set_config(old)
+
+
 def _ints(seed, n):
     rs = np.random.default_rng(seed)
     return [int.from_bytes(rs.bytes(32), "little") % R for _ in range(n)]
