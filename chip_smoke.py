@@ -21,10 +21,19 @@ non-zero before the result line:
                 four-step layout, of a 2^12 Pease transform, and the whole
                 2^20 NTT against the domain's plain twin; over Fp2: add/dbl,
                 K6 and K7 as over Fp, K3 / K4 on a dense G2 MSM's buckets at
-                2^12 (c = 7) and at 2^15 (c = 10);
+                2^12 (c = 7) and at 2^15 (c = 10; there K3's twin walks
+                windows 0-24 and the native engine's MSM holds the whole); K8 mul_chain for Fr and Fp at
+                2^15 lanes with k = 1, 2, 65 (timed at the probe's 2^19 lanes);
+                K9 mxu_reduce on the digit sums of a real 128-point DFT product
+                at 2^15 lanes and on the largest legal digit sums, timed on
+                the (64, 2^20) digit array of a 2^20 NTT's first pass, with
+                the product's own time (`torch._int_mm` and its exact
+                corrections) and a float64 matmul's beside it;
   4. golden   - the coeff_2e10 vector of tests/vectors.json: setup, commit,
                 witness bytes, verify accepts, tampered y rejected;
-  5. 2^15     - setup (host engine; cached under build/kzg_tpu_torch/),
+  5. 2^15     - setup (host engine, asked for by name; cached under
+                build/kzg_tpu_torch/; `setup_device` on the card must give the
+                same SRS in every affine coordinate),
                 commit of a seeded random polynomial checked against the
                 native engine's MSM, witness, verify, tampered y rejected;
   6. counts   - kernel launch counts of phases 4-5 (reset just before
@@ -57,11 +66,29 @@ non-zero before the result line:
                 Lagrange G2 points, h^z == lh[d-1] - lh[0]);
  14. counts   - launch counts of phases 11-13 (reset just before phase 11),
                 every kernel of that path must be > 0 (all but K3 over Fp:
-                its MSMs have 128 buckets a window and take K7).
+                its MSMs have 128 buckets a window and take K7);
+ 15. peaks    - `bench.mul_peak` for Fr and Fp at 2^19 lanes: the k = 65 rate,
+                the marginal rate (launch cost cancelled) and the k = 1 launch
+                beside the rate the kernel report's bound assumes;
+ 16. mxu NTT  - `Domain` transforms under `ntt_mxu="auto"` (matmul-DFT blocks,
+                kernel K9) equal to `"off"` word for word at 2^14 (balanced
+                split), 2^15 (pinned split) and 2^20, both directions; K9 > 0
+                and K5 = 0 inside the transform; the 2^20 coset division of
+                phase 9 again with the same quotient; times under both
+                settings (CUDA events, mean of 5);
+ 17. 2^20     - `setup_device(s, 2^20, g2_count=2)` (powers 0, 1, 2^19 and
+                2^20 - 1 against the native engine), commit (equal to the
+                native engine's MSM and to f(s) G), witness, verify, tampered
+                y rejected; the Lagrange basis from the secret by the device
+                route at 2^12 equal to the trusted one in `lg` and `lh`;
+ 18. counts   - launch counts of phases 15-17 (reset just before phase 15):
+                K8, K9 and every kernel device setup and the 2^20 path touch
+                must be > 0.
+Setups other than phase 5's take the default engine, the device route.
 With --profile, the evaluation-form path is then profiled phase by phase
 (wall, launches, device time by kernel, idle share) and the table written
 to JSON (default build/profile_eval.json).
-The last lines are the kernel report (launches summed over the three
+The last lines are the kernel report (launches summed over the four
 counted runs), the nvidia-smi line, and {"ok": true, "device": {...}}.
 
 Bounds in the kernel report. `bound_ms` is the larger of two times: the
@@ -70,7 +97,8 @@ once) over the H100's 3.35 TB/s of device memory, and its 32-bit integer
 multiply-adds over the card's rate for them. That rate is not in NVIDIA's
 data sheet; it is taken as a quarter of the 67 TFLOP/s float32 figure: a
 float32 FMA counts two operations, and a Hopper SM has 64 INT32 lanes to
-its 128 FP32 lanes, which gives 16.75e12 multiply-adds a second. A
+its 128 FP32 lanes, which gives 16.75e12 multiply-adds a second (phase 15 prints the rate the card shows for a
+dependent multiply beside it). A
 Montgomery multiplication of N words is counted as 2 N^2 + N multiply-adds
 (CIOS), a field add or sub as 2 N word operations, a point operation by its
 field multiplications (dbl 7, madd 11, add 16 over Fp; 16, 29, 43 over
@@ -152,6 +180,19 @@ def cuda_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def median3(fn):
+    """(result, median seconds, the three times) of fn, host-clocked and
+    closed by a synchronize."""
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return out, sorted(times)[1], times
 
 
 def bound(nbytes, mads):
@@ -292,7 +333,8 @@ def main(argv=None) -> int:
         return 1
 
     from kzg_tpu_torch import kernels, native
-    from kzg_tpu_torch.config import get_config
+    from kzg_tpu_torch.bench import mul_peak, peaks
+    from kzg_tpu_torch.config import configure, get_config
     from kzg_tpu_torch.constants import P, R
     from kzg_tpu_torch.curve import G1, G2, cuda_ops, g1_from_device, g2_from_device
     from kzg_tpu_torch.fields import FP, FR
@@ -304,10 +346,10 @@ def main(argv=None) -> int:
         KZGBatchWitnessEvalForm, KZGProverEvalForm, KZGVerifierEvalForm,
         compute_lagrange_basis, compute_lagrange_basis_from_secret,
     )
-    from kzg_tpu_torch.kzg.srs import KZGParams, setup
+    from kzg_tpu_torch.kzg.srs import KZGParams, setup, setup_device
     from kzg_tpu_torch.msm import msm_g1, msm_g2, pippenger
-    from kzg_tpu_torch.ntt import Domain
-    from kzg_tpu_torch.oracle import ec_add, ec_neg
+    from kzg_tpu_torch.ntt import Domain, mxu
+    from kzg_tpu_torch.oracle import ec_add, ec_neg, g1_generator
     from kzg_tpu_torch.poly import Polynomial, lagrange_interpolation, vanishing_poly
 
     dev = torch.device("cuda", 0)
@@ -344,7 +386,9 @@ def main(argv=None) -> int:
             params = KZGParams.load(cache, device=dev)
             how = "loaded from cache"
         else:
+            configure(setup_engine="host")
             params = setup(SEED, N_MAIN, device=dev)
+            configure(setup_engine="auto")
             os.makedirs(os.path.dirname(cache), exist_ok=True)
             params.save(cache)
             how = "built on the host engine"
@@ -716,22 +760,29 @@ def main(argv=None) -> int:
               == native.g2_msm(hs_host[:n], ints2),
               "K7-G2 + G2 add/dbl + K4-G2 MSM at 2^12 equals the native engine's")
 
-        def g2_bucket_kernels(pts, ints, c, label):
+        def g2_bucket_kernels(pts, ints, c, label, twin_windows=None):
             """K3 and K4 over Fp2 against their twins on one dense MSM's
-            buckets; returns (errors, kernel ms, plain ms, bounds)."""
+            buckets; returns (errors, kernel ms, plain ms, bounds). With
+            twin_windows the twin of K3 walks only the first so many windows
+            (its time is the fullest bucket's run, ~1,200 points in the short
+            top window of a 2^15 MSM against ~60 elsewhere); the MSM's
+            equality with the native engine's below holds the rest."""
             std = FR.from_mont(torch.from_numpy(FR.encode(ints)).to(dev))
             inputs2 = pippenger.bucket_inputs(*pts, std, c)
             log(f"  K3-G2 {label} shapes: rows {tuple(inputs2[0].shape)}, order "
                 f"{tuple(inputs2[1].shape)}, buckets {tuple(inputs2[2].shape)}, fullest bucket "
                 f"{int(inputs2[3].max())}")
             got = cuda_ops.bucket_accumulate(*inputs2)
+            tw_ = inputs2[2].shape[0] if twin_windows is None else twin_windows
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            want = cuda_ops.bucket_accumulate_plain(*inputs2)
+            want = cuda_ops.bucket_accumulate_plain(
+                inputs2[0], *(t[:tw_].contiguous() for t in inputs2[1:]))
             torch.cuda.synchronize()
             k3_plain = (time.perf_counter() - t0) * 1e3
-            k3_err = max_abs_diff(got, want)
-            check(k3_err == 0, f"K3-G2 bucket_accumulate {label}, c={c} equals plain")
+            k3_err = max_abs_diff(tuple(t[..., :tw_, :] for t in got), want)
+            check(k3_err == 0, f"K3-G2 bucket_accumulate {label}, c={c} equals plain on "
+                  f"{tw_} of {inputs2[2].shape[0]} windows")
             k3_ms = cuda_ms(lambda: cuda_ops.bucket_accumulate(*inputs2), 5)
             k3_bound = bucket_bound(1, inputs2, sum(t.numel() for t in got))
             s_all = pippenger.weighted_bucket_sum(G2, got)
@@ -754,14 +805,85 @@ def main(argv=None) -> int:
                     (k3_bound, horner_bound(1, windows, c)))
 
         # a dense 2^12-point MSM's buckets through K3 (c = 7; the MSM itself
-        # takes the bucket loop at this size), then the shape the G2 MSM
-        # path gives K3 and K4: 2^15 points, c = 10
+        # takes the bucket loop at this size), every window against the twin;
+        # then the shape the G2 MSM path gives K3 and K4: 2^15 points,
+        # c = 10, the twin on windows 0-24 and the native engine's MSM for
+        # the whole (the twin's walk of window 25 alone takes two minutes)
         errs12, ms12, _, _ = g2_bucket_kernels(hs12, ints2, c2, "2^12")
         report.update(g2_bucket_accumulate_2e12_ms=ms12[0], g2_horner_join_2e12_ms=ms12[1])
-        errs, ms, plain, bounds = g2_bucket_kernels(params.hs, scal_ints, C_MAIN, "2^15")
+        errs, ms, plain, bounds = g2_bucket_kernels(params.hs, scal_ints, C_MAIN, "2^15",
+                                                    twin_windows=25)
         for i, kname in enumerate(("g2_bucket_accumulate", "g2_horner_join")):
             kinfo[kname].update(max_abs_err=max(errs[i], errs12[i]), ms=ms[i],
                                 plain_ms=plain[i], bound=bounds[i])
+        # K8: k dependent multiplies, against the plain chain at 2^15 lanes;
+        # timed at the probe's shape, 2^19 lanes and k = 65, over Fp
+        gen8 = torch.Generator(device=dev).manual_seed(SEED + 8)
+        k8_err = 0
+        for F in (FR, FP):
+            a = peaks.random_elements(F, N_MAIN, gen8)
+            b = peaks.random_elements(F, N_MAIN, gen8)
+            for k in (1, 2, 65):
+                err = max_abs_diff(cuda_field.mul_chain(F, k, a, b),
+                                   cuda_field.mul_chain_plain(F, k, a, b))
+                k8_err = max(k8_err, err)
+                check(err == 0, f"K8 mul_chain {F.name} k={k} 2^15 equals plain")
+        lanes8 = 1 << 19
+        a = peaks.random_elements(FP, lanes8, gen8)
+        b = peaks.random_elements(FP, lanes8, gen8)
+        kinfo["mul_chain"].update(
+            max_abs_err=k8_err,
+            ms=cuda_ms(lambda: cuda_field.mul_chain(FP, peaks.K_LONG, a, b), 10),
+            plain_ms=cuda_ms(lambda: cuda_field.mul_chain_plain(FP, peaks.K_LONG, a, b), 1),
+            bound=bound(3 * 48 * lanes8, peaks.K_LONG * FP_MUL_MADS * lanes8))
+
+        # K9: the digit sums of a real 128-point DFT product at 2^15 lanes, and
+        # the largest legal digit sums; then timed, with the product, on the
+        # first pass of the 2^20 NTT: 128-point blocks over 8192 columns
+        x15 = x20[:, :N_MAIN].reshape(FR.W, 128, N_MAIN // 128)
+        y15 = mxu.digit_sums(7, False, mxu.to_planes(x15, 7))
+        check(torch.equal(y15, mxu.digit_sums_plain(7, False, mxu.to_planes(x15, 7))),
+              "matmul-DFT product (torch._int_mm, shifted operands) equals the float64 product")
+        y15 = y15.reshape(mxu.OUT_DIGITS, N_MAIN)
+        k9_err = max_abs_diff(mxu.mxu_reduce(y15), mxu.mxu_reduce_plain(y15))
+        check(k9_err == 0, "K9 mxu_reduce (64, 2^15) of a real product equals plain")
+        check(torch.equal(mxu.dft_axis2(7, False, x15), Domain(7)._ntt_axis2(x15, False)),
+              "matmul-DFT block 2^7 x 256 equals the butterfly stages (K5)")
+        pairs = [min(mxu.PLANES - 1, dg) - max(0, dg - mxu.PLANES + 1) + 1
+                 for dg in range(mxu.OUT_DIGITS - 1)] + [0]
+        y_top = (torch.tensor(pairs, device=dev)[:, None] * (255 * 255 * 128)).to(
+            torch.int32).expand(-1, N_MAIN).contiguous()
+        err = max_abs_diff(mxu.mxu_reduce(y_top), mxu.mxu_reduce_plain(y_top))
+        k9_err = max(k9_err, err)
+        check(err == 0, "K9 mxu_reduce on the largest legal digit sums equals plain")
+        x_pass = x20.reshape(FR.W, 128, d20 // 128)
+        planes20 = mxu.to_planes(x_pass, 7)
+        y20 = mxu.digit_sums(7, False, planes20).reshape(mxu.OUT_DIGITS, d20)
+        err = max_abs_diff(mxu.mxu_reduce(y20), mxu.mxu_reduce_plain(y20))
+        k9_err = max(k9_err, err)
+        check(err == 0, "K9 mxu_reduce (64, 2^20), a 2^20 NTT's first pass, equals plain")
+        w8, _ = mxu._wbig_device(7, False, dev, signed=True)
+        x8 = planes20.bitwise_xor(0x80).view(torch.int8)  # column-major, as to_planes lays it out
+        x8_rows = x8.contiguous()
+        report.update(
+            mxu_planes_2e20_ms=cuda_ms(lambda: mxu.to_planes(x_pass, 7), 5),
+            mxu_product_2e20_ms=cuda_ms(lambda: mxu.digit_sums(7, False, planes20), 5),
+            mxu_int_mm_2e20_ms=cuda_ms(lambda: torch._int_mm(w8, x8), 5),
+            mxu_int_mm_rowmajor_2e20_ms=cuda_ms(lambda: torch._int_mm(w8, x8_rows), 5),
+            mxu_float64_product_2e20_ms=cuda_ms(
+                lambda: mxu.digit_sums_plain(7, False, planes20), 2))
+        log(f"  matmul-DFT pass at 2^20 (8192 x 4096 @ 4096 x 8192): plane split "
+            f"{report['mxu_planes_2e20_ms']:.4f} ms, product {report['mxu_product_2e20_ms']:.4f} ms "
+            f"(torch._int_mm alone {report['mxu_int_mm_2e20_ms']:.4f} ms; on a row-major right "
+            f"side {report['mxu_int_mm_rowmajor_2e20_ms']:.4f} ms), float64 matmul "
+            f"{report['mxu_float64_product_2e20_ms']:.4f} ms [{card}]")
+        kinfo["mxu_reduce"].update(
+            max_abs_err=k9_err,
+            ms=cuda_ms(lambda: mxu.mxu_reduce(y20), 10),
+            plain_ms=cuda_ms(lambda: mxu.mxu_reduce_plain(y20), 1),
+            bound=bound((4 * mxu.OUT_DIGITS + 32) * d20, (8 * 8 + 8) * d20))
+        del y20, planes20, x8, x8_rows, y_top, y15
+
         for k, v in kinfo.items():
             log(f"  {k}: kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.2f} ms, bound "
                 f"{v['bound'][0]:.6f} ms ({v['bound'][1]}) [{card}]")
@@ -777,7 +899,10 @@ def main(argv=None) -> int:
         x = grng.randrange(R)
         check(hex(x) == v["open_x"], "seed stream reproduces open_x")
         y = horner(coeffs, x, R)
-        gparams = setup(int(vec["secret"], 16), v["n"], device=dev)
+        t0 = time.perf_counter()
+        gparams = setup(int(vec["secret"], 16), v["n"], device=dev)  # the device route
+        torch.cuda.synchronize()
+        first_setup_s = time.perf_counter() - t0
         prover = KZGProver(gparams)
         poly = Polynomial.from_ints(coeffs, device=dev)
         commitment = prover.commit(poly)
@@ -914,6 +1039,7 @@ def main(argv=None) -> int:
         log(f"  coset division 2^{EXP_COSET} (k = {K_BATCH}) {div_s:.4f} s; NTT 2^{EXP_COSET} "
             f"kernel {ntt_ms:.4f} ms, plain twin {ntt_plain_ms:.2f} ms [{card}]")
         report.update(coset_div_2e20_s=div_s)
+        coset_case = (numerator, z, xs, q)  # divided again under ntt_mxu="auto" (phase 16)
 
     # ---- 10. launch counts of the batched path ---------------------------------------------------
     with phase("launch counts 7-9"):
@@ -1000,7 +1126,9 @@ def main(argv=None) -> int:
                   zip(lag.lg + lag.lh, basis["G1"] + basis["G2"])),
               "compute_lagrange_basis equals the per-group iNTTs")
         t0 = time.perf_counter()
+        configure(setup_engine="host")
         ref = compute_lagrange_basis_from_secret(SEED, EXP_EVAL, device=dev)
+        configure(setup_engine="auto")
         secret_s = time.perf_counter() - t0
         check(all(torch.equal(a, b) for a, b in zip(lag.lg, ref.lg)),
               f"trusted Lagrange G1 basis equals the from-secret basis, all {d} points")
@@ -1014,16 +1142,6 @@ def main(argv=None) -> int:
         evals_d = torch.from_numpy(FR.encode(evals)).to(dev)
         eprover = KZGProverEvalForm(sub_params, lag)
         everifier = KZGVerifierEvalForm(sub_params, lag)
-
-        def median3(fn):
-            times = []
-            for _ in range(3):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out = fn()
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-            return out, sorted(times)[1], times
 
         commitment, ecommit_s, ctimes = median3(lambda: eprover.commit(evals_d))
         lg_host = g1_from_device(lag.lg)
@@ -1084,10 +1202,151 @@ def main(argv=None) -> int:
         log(f"  {counts_eval}")
         for k, n_launch in counts_eval.items():
             # a 2^12-point G1 MSM takes the bucket loop on K7, so this run
-            # gives the G1 instantiation of K3 nothing
-            check(n_launch > 0 or k == "g1_bucket_accumulate",
+            # gives the G1 instantiation of K3 nothing; K8 and K9 belong to
+            # the probe and the matmul-DFT NTT (phases 15-16)
+            check(n_launch > 0 or k in ("g1_bucket_accumulate", "mul_chain", "mxu_reduce"),
                   f"{k} launched {n_launch} times on the G2 MSM and evaluation-form path")
-        counts = {k: counts_single[k] + counts_batched[k] + counts_eval[k] for k in counts_eval}
+
+    # ---- 15-17. the probe, the matmul-DFT NTT, device setup and the 2^20 path, counted -----------
+    kernels.reset_launches()
+
+    with phase("mul peaks 2^19"):
+        for F, mads in ((FR, FR_MUL_MADS), (FP, FP_MUL_MADS)):
+            pk = mul_peak(F, 1 << 19, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(SEED + 15))
+            assumed = INT_MADS_PER_S / mads
+            log(f"  {F.name} mul: k = 65 rate {pk.rate:.4e} /s, marginal rate "
+                f"{pk.marginal_rate:.4e} /s, k = 1 launch {pk.launch_ms:.4f} ms, k = 65 launch "
+                f"{pk.long_ms:.4f} ms; the bound assumes {assumed:.4e} /s "
+                f"({mads} multiply-adds each): measured / assumed "
+                f"{pk.marginal_rate / assumed:.3f} [{card}]")
+            check(pk.marginal_rate > 0 and pk.long_ms > pk.launch_ms,
+                  f"{F.name} multiply chain: 65 products take longer than 1")
+            report[f"{F.name.lower()}_mul_per_s"] = pk.marginal_rate
+            report[f"{F.name.lower()}_mul_launch_ms"] = pk.launch_ms
+
+    with phase("matmul-DFT NTT 2^14, 2^15, 2^20"):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+        for exp in (14, 15, EXP_COSET):
+            dom = Domain(exp)
+            x = random_fr_words(gen, (dom.d,), dev)
+            configure(ntt_mxu="off")
+            want = (dom.ntt(x), dom.intt(x))
+            off_ms = cuda_ms(lambda: dom.ntt(x), 5)
+            configure(ntt_mxu="auto")
+            before = kernels.launch_counts()
+            got = (dom.ntt(x), dom.intt(x))
+            after = kernels.launch_counts()
+            check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                  f"Domain({exp}) ntt and intt under ntt_mxu=auto equal ntt_mxu=off, split "
+                  f"{dom._fs_split(dev)}")
+            check(after["mxu_reduce"] > before["mxu_reduce"]
+                  and after["ntt_stage"] == before["ntt_stage"],
+                  f"the transforms launched K9 {after['mxu_reduce'] - before['mxu_reduce']} times "
+                  "and no butterfly stage")
+            on_ms = cuda_ms(lambda: dom.ntt(x), 5)
+            configure(ntt_mxu="off")
+            log(f"  NTT 2^{exp}: ntt_mxu=auto {on_ms:.4f} ms, off {off_ms:.4f} ms "
+                f"({on_ms / off_ms:.2f}x) [{card}]")
+            report[f"ntt_mxu_2e{exp}_ms"] = on_ms
+            report[f"ntt_off_2e{exp}_ms"] = off_ms
+        configure(ntt_mxu="auto")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q_mxu = KZGProver._exact_div(coset_case[0], coset_case[1], xs_int=coset_case[2])
+        torch.cuda.synchronize()
+        div_mxu_s = time.perf_counter() - t0
+        configure(ntt_mxu="off")
+        check(q_mxu == coset_case[3] and q_mxu.num_coeffs() == coset_case[3].num_coeffs(),
+              f"coset division 2^{EXP_COSET} under ntt_mxu=auto gives the same quotient")
+        log(f"  coset division 2^{EXP_COSET}: ntt_mxu=auto {div_mxu_s:.4f} s, off {div_s:.4f} s "
+            f"[{card}]")
+        report.update(coset_div_mxu_2e20_s=div_mxu_s)
+
+    with phase("device setup 2^15"):
+        check(get_config().setup_engine == "auto", "the default engine on a card is the device route")
+        dparams, dsetup_s, dtimes = median3(lambda: setup(SEED, N_MAIN, device=dev))
+        check(all(torch.equal(a, b) for a, b in zip(dparams.gs + dparams.hs,
+                                                    params.gs + params.hs)),
+              "setup_device(s, 2^15) equals the host engine's SRS in every coordinate of gs, hs")
+        log(f"  setup 2^15 by the device route: {dsetup_s:.4f} s (runs "
+            f"{', '.join(f'{t:.4f}' for t in dtimes)}); the first device setup of the run, 2^10 "
+            f"with the table load and validation, {first_setup_s:.4f} s; host engine "
+            f"{setup_s:.2f} s ({how}) [{card}]")
+        report.update(setup_device_2e15_s=dsetup_s)
+        del dparams
+
+    with phase("main path 2^20"):
+        n20 = 1 << 20
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        big = setup_device(SEED, n20, g2_count=2, device=dev)
+        torch.cuda.synchronize()
+        setup20_s = time.perf_counter() - t0
+        check(big.gs[0].shape[-1] == n20 and big.hs[0].shape[-1] == 2,
+              "setup_device(s, 2^20, g2_count=2): 2^20 G1 powers, 2 G2 powers")
+        spots = [0, 1, n20 // 2, n20 - 1]
+        check(g1_from_device(tuple(t[..., spots] for t in big.gs))
+              == [native.g1_mul(g1_generator(), pow(SEED, i, R)) for i in spots],
+              "powers 0, 1, 2^19 and 2^20 - 1 equal native.g1_mul(g, s^i)")
+        gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+        poly = Polynomial(random_fr_words(gen, (n20,), dev))
+        coeffs = poly.to_ints()
+        prover = KZGProver(big)
+        commitment, commit20_s, ctimes = median3(lambda: prover.commit(poly))
+        c_host = g1_from_device(tuple(t[..., None] for t in commitment))[0]
+        check(c_host == native.g1_mul(g1_generator(), horner(coeffs, SEED, R)),
+              "2^20 commitment equals f(s) G")
+        t0 = time.perf_counter()
+        big_host = g1_from_device(big.gs)
+        want_pt = native.g1_msm(big_host, coeffs)
+        native_s = time.perf_counter() - t0
+        check(c_host == want_pt, "2^20 commitment equals native.g1_msm (affine)")
+        del big_host
+        x = rng.randrange(R)
+        y = horner(coeffs, x, R)
+        witness, witness20_s, wtimes = median3(
+            lambda: prover.create_witness(poly, (x, y), check=False))
+        verifier = KZGVerifier(big)
+        t0 = time.perf_counter()
+        ok = verifier.verify_eval((x, y), commitment, witness)
+        verify20_s = time.perf_counter() - t0
+        check(ok, "2^20 verify_eval accepts")
+        check(not verifier.verify_eval((x, (y + 1) % R), commitment, witness),
+              "2^20 verify_eval rejects a tampered y")
+        log(f"  2^20: setup_device {setup20_s:.4f} s; commit {commit20_s:.4f} s "
+            f"(runs {', '.join(f'{t:.4f}' for t in ctimes)}), {n20 / commit20_s:.0f} points/s; "
+            f"witness {witness20_s:.4f} s (runs {', '.join(f'{t:.4f}' for t in wtimes)}); "
+            f"verify {verify20_s:.4f} s; points to the host and native g1_msm {native_s:.2f} s "
+            f"[{card}]")
+        report.update(setup_device_2e20_s=setup20_s, commit_2e20_s=commit20_s,
+                      points_per_s_2e20=n20 / commit20_s, witness_2e20_s=witness20_s,
+                      verify_2e20_s=verify20_s)
+        del big, prover, verifier, poly
+
+    with phase(f"Lagrange SRS from the secret, device route 2^{EXP_EVAL}"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref_dev = compute_lagrange_basis_from_secret(SEED, EXP_EVAL, device=dev)
+        torch.cuda.synchronize()
+        secret_dev_s = time.perf_counter() - t0
+        check(all(torch.equal(a, b) for a, b in zip(ref_dev.lg + ref_dev.lh, lag.lg + lag.lh)),
+              f"from-secret basis by the device ladders equals the trusted basis, lg and lh, "
+              f"all {d} points")
+        log(f"  Lagrange SRS 2^{EXP_EVAL} from the secret: device route {secret_dev_s:.4f} s, host "
+            f"engine {secret_s:.4f} s [{card}]")
+        report.update(lagrange_secret_device_s=secret_dev_s)
+
+    # ---- 18. launch counts of the probe, matmul-DFT and 2^20 paths -----------------------------
+    with phase("launch counts 15-17"):
+        counts_big = kernels.launch_counts()
+        log(f"  {counts_big}")
+        for k in ("mul_chain", "mxu_reduce", "field_elementwise", "ntt_stage", "g1_add", "g1_dbl",
+                  "g2_add", "g1_bucket_accumulate", "g1_horner_join"):
+            check(counts_big[k] > 0, f"{k} launched {counts_big[k]} times on the probe, "
+                  "matmul-DFT, device-setup and 2^20 path")
+        counts = {k: counts_single[k] + counts_batched[k] + counts_eval[k] + counts_big[k]
+                  for k in counts_eval}
 
     if args.profile:
         with phase(f"profile of the evaluation-form path 2^{EXP_EVAL}"):

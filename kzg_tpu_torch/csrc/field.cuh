@@ -194,6 +194,36 @@ __device__ __forceinline__ Fe<F> fe_mul(const Fe<F>& a, const Fe<F>& b) {
   return fe_reduce_once<F>(t, t[N]);
 }
 
+// Stand-alone Montgomery reduction of a double-width value: t holds 2N
+// words, T < p * 2^(32N); returns T * 2^(-32N) mod p in [0, p). N rounds:
+// m = t[i] * n' clears word i, the carry of each round ripples to the top;
+// a carry out of word 2N - 1 is kept and handed to the one conditional
+// subtraction. t is overwritten.
+template <class F>
+__device__ __forceinline__ Fe<F> fe_redc(uint32_t* t) {
+  constexpr int N = F::N;
+  uint32_t top = 0u;
+#pragma unroll
+  for (int i = 0; i < N; i++) {
+    const uint32_t m = t[i] * F::NPRIME;
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < N; j++) {
+      uint64_t s = (uint64_t)m * F::mod(j) + t[i + j] + c;
+      t[i + j] = (uint32_t)s;
+      c = s >> 32;
+    }
+#pragma unroll
+    for (int j = i + N; j < 2 * N; j++) {
+      uint64_t s = (uint64_t)t[j] + c;
+      t[j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    top += (uint32_t)c;
+  }
+  return fe_reduce_once<F>(t + N, top);
+}
+
 template <class F>
 __device__ __forceinline__ Fe<F> fe_sqr(const Fe<F>& a) {
   return fe_mul<F>(a, a);

@@ -12,6 +12,15 @@
 // words for ~4N integer ops and are device-memory bound. The limb-major
 // (N, n) layout makes each word load a coalesced 128-byte warp access.
 //
+// Kernel K8, `mul_chain`, replaces `make_mul_chain` (pallas_field.py:323):
+// acc = a, then k times acc = acc * b, in one launch. It is the probe that
+// measures the card's dependent-multiply rate: the time of k = 65 less the
+// time of k = 1 holds 64 products an element and no launch cost. Each
+// thread loads a and b once and keeps acc in registers; k arrives as an
+// argument and the loop stays rolled (`#pragma unroll 1`), so the compiler
+// can neither hoist nor shorten the chain (acc depends on acc). Bound:
+// k (2 N^2 + N) multiply-adds an element; three rows of bytes whatever k.
+//
 // C interface (ctypes): each entry launches on the caller's stream,
 // allocates nothing, and returns cudaGetLastError() of the launch.
 
@@ -51,6 +60,19 @@ mul_const_kernel(uint32_t* __restrict__ out, const uint32_t* __restrict__ a,
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   fe_store<F>(out, n, i, fe_mul<F>(fe_load<F>(a, n, i), c));
+}
+
+template <class F>
+__global__ void __launch_bounds__(kThreads)
+mul_chain_kernel(uint32_t* __restrict__ out, const uint32_t* __restrict__ a,
+                 const uint32_t* __restrict__ b, int k, long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Fe<F> acc = fe_load<F>(a, n, i);
+  const Fe<F> y = fe_load<F>(b, n, i);
+#pragma unroll 1
+  for (int s = 0; s < k; s++) acc = fe_mul<F>(acc, y);
+  fe_store<F>(out, n, i, acc);
 }
 
 inline unsigned blocks_for(long long n) {
@@ -108,6 +130,24 @@ int kzg_field_mul_const(int field, void* out, const void* a, const void* c_host,
   if (field == 0) return launch_mul_const<Fr>(o, x, c, n, s);
   if (field == 1) return launch_mul_const<Fp>(o, x, c, n, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// out = a * b^k * R^-k: k dependent Montgomery products, one launch.
+int kzg_field_mul_chain(int field, void* out, const void* a, const void* b, int k,
+                        long long n, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto o = static_cast<uint32_t*>(out);
+  auto x = static_cast<const uint32_t*>(a);
+  auto y = static_cast<const uint32_t*>(b);
+  if (n <= 0 || k < 0) return (int)cudaErrorInvalidValue;
+  if (field == 0) {
+    mul_chain_kernel<Fr><<<blocks_for(n), kThreads, 0, s>>>(o, x, y, k, n);
+  } else if (field == 1) {
+    mul_chain_kernel<Fp><<<blocks_for(n), kThreads, 0, s>>>(o, x, y, k, n);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

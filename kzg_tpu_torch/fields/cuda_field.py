@@ -29,6 +29,15 @@ that replaces `make_ntt_stage` (`pallas_field.py:346`), is wrapped here too,
 with its plain twins `ntt_stage_plain` (the butterfly) and
 `ntt_stage_layout_plain` (the whole stage with K5's twiddle indexing and
 interleaved output).
+
+Kernel K8 (`mul_chain`, `csrc/field_kernels.cu`) replaces `make_mul_chain`
+(`pallas_field.py:323`): acc = a, then k times acc = acc * b, in one
+launch. It is the speed-of-light probe of `bench.peaks.mul_peak`: timing
+two chain lengths and taking the difference cancels launch and dispatch.
+One thread an element, operands loaded once, the k dependent CIOS products
+in registers, one store; k is a launch argument and the loop is kept
+rolled. Bound: k (2 N^2 + N) multiply-adds an element; the bytes are three
+rows whatever k. Plain version: `mul_chain_plain`.
 """
 
 import ctypes
@@ -240,6 +249,60 @@ def make_add(field):
 
 def make_sub(field):
     return _make_binary(field, SUB, "sub")
+
+
+# ---- K8: the multiply chain ---------------------------------------------------------
+
+_K8 = kernels.REGISTRY["mul_chain"]
+
+
+def mul_chain_plain(field, k: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of K8 on any device: acc = a, then k sequential
+    Montgomery products acc = acc * b over (W, *batch) words."""
+    a, b = torch.broadcast_tensors(a, b)
+    mod = _limbs_const(field.mod_words, a.device)
+    acc = unpack16(_flat(a, field.W))
+    y = unpack16(_flat(b, field.W))
+    for _ in range(k):
+        acc = _mont_mul16(acc, y, mod, field.nprime16)
+    return pack16(acc).reshape(a.shape)
+
+
+def mul_chain(field, k: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K8: a * b^k * R^-k in one launch (k >= 0 dependent Montgomery
+    products). The plain version for CPU tensors, the CUDA kernel for CUDA
+    tensors."""
+    if k < 0:
+        raise ValueError("chain length must be >= 0")
+    a, b = torch.broadcast_tensors(a, b)
+    if _device_kind(a) == "cpu":
+        return mul_chain_plain(field, k, a, b)
+    _check_operand(field, a, a.device)
+    _check_operand(field, b, a.device)
+    a = a.contiguous()
+    b = b.contiguous()
+    out = torch.empty_like(a)
+    n = a.numel() // field.W
+    if n == 0:
+        return out
+    rc = kernels.library().kzg_field_mul_chain(
+        field.kernel_id, out.data_ptr(), a.data_ptr(), b.data_ptr(), k, n,
+        kernels.stream_handle(a.device),
+    )
+    kernels.check_status(rc, f"{field.name} mul_chain k={k}")
+    _K8.launches += 1
+    return out
+
+
+def make_mul_chain(field, k: int):
+    """`make_mul_chain` of `kzg_tpu/fields/pallas_field.py:323`: the
+    two-operand function running k dependent multiplies in one launch."""
+    def fn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return mul_chain(field, k, a, b)
+
+    fn.__name__ = f"mul_chain_{k}"
+    fn.__doc__ = f"acc = a; {k} times acc = acc * b (Montgomery) over {field.name} words."
+    return fn
 
 
 # ---- K5: one NTT butterfly stage ----------------------------------------------------

@@ -29,7 +29,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "kzg_tpu_torch"
 SOURCES = ("field_kernels.cu", "point_kernels.cu", "ntt_kernels.cu",
            "point_g2_kernels.cu", "madd_g2_kernels.cu", "madd_multi_g2_kernels.cu",
-           "msm_g2_kernels.cu", "horner_g2_kernels.cu")
+           "msm_g2_kernels.cu", "horner_g2_kernels.cu", "mxu_kernels.cu")
 HEADERS = ("field.cuh", "point.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -86,6 +86,12 @@ REGISTRY = {
                "kzg_tpu/curve/pallas_ops.py:388"),
         Kernel("g2_horner_join", "kzg_tpu_torch/csrc/horner_g2_kernels.cu",
                "kzg_tpu/curve/pallas_ops.py:590"),
+        # make_mul_chain: k dependent Montgomery products in one launch
+        Kernel("mul_chain", "kzg_tpu_torch/csrc/field_kernels.cu",
+               "kzg_tpu/fields/pallas_field.py:323"),
+        # the reduce epilogue of the matmul-DFT NTT
+        Kernel("mxu_reduce", "kzg_tpu_torch/csrc/mxu_kernels.cu",
+               "kzg_tpu/ntt/mxu.py:135"),
     )
 }
 
@@ -192,6 +198,10 @@ _SIGNATURES = {
     # (ox, oy, oz, ax, ay, az, qx, qy, skip bytes, neg bytes, steps, n, stream)
     "kzg_g1_madd_multi": (_P,) * 10 + (_I, _N, _P),
     "kzg_g2_madd_multi": (_P,) * 10 + (_I, _N, _P),
+    # (field, out, a, b, k, n, stream)
+    "kzg_field_mul_chain": (_I, _P, _P, _P, _I, _N, _P),
+    # (out (8, n) words, digit sums (64, n) int32, n, stream)
+    "kzg_mxu_reduce": (_P, _P, _N, _P),
 }
 
 

@@ -8,6 +8,9 @@ _EXPORTS = {
     "BatchedPointsNotOnPolynomial": "errors",
     "KZGParams": "srs",
     "setup": "srs",
+    "setup_device": "srs",
+    "fixed_base_tables": "srs",
+    "tables_from_numpy": "srs",
     "csprng_setup": "srs",
     "KZGProver": "coeff_form",
     "KZGVerifier": "coeff_form",

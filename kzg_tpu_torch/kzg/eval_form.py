@@ -7,8 +7,10 @@
     over the SRS points (`_group_intt`): butterflies are point adds (K2),
     twiddle multiplications are per-lane digit ladders
     (`CurveOps.scalar_mul_digits`: doublings on K2, table madds on K6), for
-    G1 and for G2; a host route derives the L_i(s) scalars directly when the
-    setup secret is available (testing / csprng setups);
+    G1 and for G2; when the setup secret is available (testing / csprng
+    setups) the L_i(s) scalars are computed directly and the points come
+    from the two fixed-base ladders of device setup (`kzg/srs.py`), or from
+    the host engine, by the same engine choice as `setup`;
   * commit and witness are one G1 Pippenger MSM over the Lagrange basis
     (the bucket loop on K7 below 2^15 points, K3 from there; K4); the
     all-points check runs a G2 Pippenger MSM over it (the same kernels'
@@ -17,9 +19,7 @@
     point has quotient 0;
   * pairing checks run on the host engine, as in coeff_form.py.
 
-Not ported: the device fixed-base ladders of
-`compute_lagrange_basis_from_secret` (they belong to device setup) and the
-device pairing engine; both stay host routes here.
+Not ported: the device pairing engine; pairing stays a host route here.
 """
 
 from dataclasses import dataclass
@@ -33,11 +33,14 @@ from ..curve import G1, G2, g1_from_device, g1_to_device, g2_from_device, g2_to_
 from ..fields import FR
 from ..hostcrypto import multi_pairing_check
 from ..msm import msm_g1, msm_g2
+from ..msm.pippenger import _digits
 from ..ntt import Domain
 from ..ntt.domain import compute_omega
 from ..oracle import ec_add, ec_mul, ec_neg
 from .errors import PolynomialDegreeTooLarge
-from .srs import KZGParams, _from_limbs16, _mask, _to_limbs16
+from .srs import (
+    KZGParams, _fb_window, _from_limbs16, _ladders, _mask, _to_limbs16, host_engine_preferred,
+)
 
 
 @dataclass
@@ -236,11 +239,32 @@ def compute_lagrange_basis_and_polynomials(params: KZGParams, exp: int):
             lagrange_polynomials(exp, params.gs[0].device))
 
 
+def _lagrange_scalars(exp: int, c: int, s_mont: torch.Tensor) -> torch.Tensor:
+    """(W, d) window digits of L_i(s) = (s^d - 1) omega^i / (d (s - omega^i))
+    for all i, from s as an (8, 1) Montgomery column, on its device."""
+    dom = Domain(exp)
+    d = dom.d
+    dev = s_mont.device
+    omega_pows = _omega_powers(dom, dom.omega, dev)
+    zs = FR.sub(FR.pow_static(s_mont, d), FR.one((1,), dev))  # s^d - 1
+    denom = FR.sub(s_mont.expand(FR.W, d), omega_pows)
+    li = FR.mul(FR.mul(zs, omega_pows), FR.batch_inv(denom))
+    li = FR.mul_const(li, FR.encode([pow(d, -1, R)])[:, 0])
+    return _digits(FR.from_mont(li), c)
+
+
 def compute_lagrange_basis_from_secret(s: int, exp: int, device=None) -> LagrangeSRS:
     """Fast path when the setup secret is known (test / csprng setups): the
-    L_i(s) scalars from host ints, the points from the native host engine
-    (the only engine ported; see the module docstring)."""
-    return _lagrange_basis_host(s, exp, device)
+    L_i(s) scalars directly, then the two fixed-base ladders of device setup
+    on `device`. Where `srs.host_engine_preferred` picks the host engine
+    (the same rule as `setup`: the CPU under "auto", or "host"), the scalars
+    are host ints and the points come from the native engine."""
+    if host_engine_preferred(device):
+        return _lagrange_basis_host(s, exp, device)
+    c = _fb_window()
+    s_mont = torch.from_numpy(FR.encode([s % R])).to(resolve_device(device))
+    lg, lh = _ladders(c, _lagrange_scalars(exp, c, s_mont))
+    return LagrangeSRS(lg=lg, lh=lh, exp=exp)
 
 
 def _lagrange_basis_host(s: int, exp: int, device=None) -> LagrangeSRS:

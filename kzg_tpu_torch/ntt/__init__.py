@@ -3,5 +3,6 @@ value container."""
 
 from .domain import Domain, compute_omega
 from .evaluation_domain import EvaluationDomain
+from .mxu import dft_axis2, mxu_available
 
-__all__ = ["Domain", "EvaluationDomain", "compute_omega"]
+__all__ = ["Domain", "EvaluationDomain", "compute_omega", "dft_axis2", "mxu_available"]

@@ -25,9 +25,12 @@ kept as numpy words, and copied to each device on first use. Above
 2^_BIG_TABLE_EXP no O(n) table is built: the coset powers and the four-step
 twiddles use split tables, v[i] = HI[i >> s] * LO[i & (2^s - 1)].
 
-Not ported: the MXU matmul-DFT path (`ntt/mxu.py`, `ntt_mxu` is off by
-default in the JAX package), so `_fs_split` is the balanced split and
-`_four_step_axis2` is reached only by a direct call.
+With `config.ntt_mxu` on for the tensor's device (`ntt/mxu.py`; off by
+default, as in the JAX package) every domain above 2^7 points four-steps
+down to matmul-DFT leaves: `_fs_split` pins the first factor to 2^7 above
+2^14 points (2^20 -> (7, 13) -> (7, 6): three matmul passes), `_ntt_axis2`
+sends blocks of up to 2^7 points to `mxu.dft_axis2` (the product and kernel
+K9) and larger ones to `_four_step_axis2`, and no butterfly stage runs.
 
 Omega derivation matches the reference: omega = ROOT_OF_UNITY^(2^(S - exp))
 with S = 32, and exp >= S is a PolynomialDegreeTooLarge error.
@@ -40,6 +43,7 @@ from ..constants import FR_GENERATOR, FR_ROOT_OF_UNITY, FR_TWO_ADICITY, R
 from ..fields import FR
 from ..fields import cuda_field
 from ..kzg.errors import PolynomialDegreeTooLarge
+from . import mxu
 
 # Above this exponent no O(n)-sized table is built (the JAX package's
 # reason was XLA graph literals; here it keeps the two packages on the same
@@ -107,7 +111,7 @@ class Domain:
         self.plain = False
         self._twin = None
         self._dev = {}  # (table name, device) -> tensor
-        self._fs = {}  # inverse -> four-step constants
+        self._fs = {}  # (inverse, exp_r) -> four-step constants
         self._tables = {"dinv": FR.encode([self.d_inv])[:, 0]}
         half = max(1, self.d // 2)
         if exp < _BIG_TABLE_EXP:
@@ -179,18 +183,25 @@ class Domain:
 
     # ---- four-step (Bailey) decomposition ----------------------------------
 
-    def _fs_split(self):
-        """(exp_r, exp_c), balanced (the MXU-pinned split is not ported)."""
-        exp_r = self.exp // 2
+    def _fs_split(self, device):
+        """(exp_r, exp_c) of the four-step factorisation for a tensor on
+        `device`. Balanced by default; on the matmul-DFT path the first
+        factor is pinned to the block edge 2^7 above 2^14 points, so deep
+        sizes recurse in the fewest levels."""
+        if mxu.mxu_available(device) and self.exp > 2 * mxu._MAX_EXP:
+            exp_r = mxu._MAX_EXP
+        else:
+            exp_r = self.exp // 2
         return exp_r, self.exp - exp_r
 
-    def _four_step_consts(self, inverse: bool):
+    def _four_step_consts(self, inverse: bool, device):
         """(expR, expC, s, WH, WL): the twiddle matrix W[k2, j1] =
         omega^(+-j1*k2) in split form W[k2, j1] = WH[k2, j1 >> s] *
         WL[k2, j1 & (2^s - 1)], WH (8, C, R >> s), WL (8, C, 2^s) numpy
-        words. Built lazily per direction."""
-        if inverse not in self._fs:
-            exp_r, exp_c = self._fs_split()
+        words. Built lazily per (direction, split): the split follows
+        config.ntt_mxu, which may change between calls."""
+        exp_r, exp_c = self._fs_split(device)
+        if (inverse, exp_r) not in self._fs:
             rn, cn = 1 << exp_r, 1 << exp_c
             s = exp_r // 2
             base = self.omega_inv if inverse else self.omega
@@ -208,11 +219,11 @@ class Domain:
                     cur = cur * q % R
             wh = FR.encode(hi_ints).reshape(FR.W, cn, rn >> s)
             wl = FR.encode(lo_ints).reshape(FR.W, cn, 1 << s)
-            tag = "inv" if inverse else "fwd"
-            self._tables[f"fs_{tag}_hi"] = wh
-            self._tables[f"fs_{tag}_lo"] = wl
-            self._fs[inverse] = (exp_r, exp_c, s, f"fs_{tag}_hi", f"fs_{tag}_lo")
-        return self._fs[inverse]
+            tag = f"fs_{'inv' if inverse else 'fwd'}_{exp_r}"
+            self._tables[f"{tag}_hi"] = wh
+            self._tables[f"{tag}_lo"] = wl
+            self._fs[inverse, exp_r] = (exp_r, exp_c, s, f"{tag}_hi", f"{tag}_lo")
+        return self._fs[inverse, exp_r]
 
     def _ntt_four_step(self, x, inverse: bool):
         """n = R*C NTT as C-point NTTs + twiddle + transpose + R-point NTTs.
@@ -223,7 +234,7 @@ class Domain:
             X[k2 + C*k1] = NTT_R over j1 of Z[., k2]      (axis -2 after
                                                            one transpose)
         """
-        exp_r, exp_c, s, wh_name, wl_name = self._four_step_consts(inverse)
+        exp_r, exp_c, s, wh_name, wl_name = self._four_step_consts(inverse, x.device)
         rn, cn = 1 << exp_r, 1 << exp_c
         nl = x.dim() - 2
         wh = self._table(wh_name, x.device)
@@ -240,8 +251,9 @@ class Domain:
     def _four_step_axis2(self, x, inverse: bool):
         """Four-step recursion ALONG AXIS -2 of (8, *lead, m, bt), bt riding
         along as a trailing batch axis of each sub-NTT (the JAX package's
-        MXU path reduces blocks to matmul-DFT leaves with it)."""
-        exp_r, exp_c, s, wh_name, wl_name = self._four_step_consts(inverse)
+        matmul-DFT path reduces blocks to leaves of up to 2^7 points with
+        it)."""
+        exp_r, exp_c, s, wh_name, wl_name = self._four_step_consts(inverse, x.device)
         rn, cn = 1 << exp_r, 1 << exp_c
         bt = x.shape[-1]
         lead = tuple(x.shape[1:-2])
@@ -274,6 +286,10 @@ class Domain:
         rows."""
         if self.d == 1:
             return x
+        if mxu.mxu_available(x.device):
+            if self.exp <= mxu._MAX_EXP:
+                return mxu.dft_axis2(self.exp, inverse, x, plain=self.plain)
+            return self._four_step_axis2(x, inverse)
         shape = x.shape
         bt = shape[-1]
         y = self._stages(x.reshape(FR.W, -1, self.d, bt), inverse).reshape(shape)
@@ -294,8 +310,12 @@ class Domain:
 
         # config can lower the four-step gate (tests force it small) but
         # not raise it past _BIG_TABLE_EXP: big domains have no dense
-        # stage tables, so the Pease loop is not an option there
+        # stage tables, so the Pease loop is not an option there. On the
+        # matmul-DFT path everything above the block edge four-steps down
+        # to matmul leaves.
         gate = max(4, min(get_config().ntt_four_step_min_exp, _BIG_TABLE_EXP))
+        if mxu.mxu_available(x.device):
+            gate = min(gate, mxu._MAX_EXP + 1)
         if self.exp >= gate:
             return self._ntt_four_step(x, inverse)
         shape = x.shape

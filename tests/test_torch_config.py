@@ -131,3 +131,29 @@ def test_config_validates_new_fields():
     with pytest.raises(ValueError):
         config.KZGConfig(group_ladder_window=0).validate()
     assert config.KZGConfig().group_ladder_window == 4
+
+
+@pytest.mark.parametrize("field,bad,good", [
+    ("setup_engine", "gpu", ("auto", "host", "device")),
+    ("ntt_mxu", "on", ("auto", "off", "force")),
+    ("fixed_base_window", 1, (2, 8, 16)),
+    ("fixed_base_window", 17, (8,)),
+    ("msm_chunk_log", 3, (4, 22)),
+])
+def test_config_validates_setup_and_mxu_fields(field, bad, good):
+    with pytest.raises(ValueError):
+        config.KZGConfig(**{field: bad}).validate()
+    for value in good:
+        assert getattr(config.KZGConfig(**{field: value}).validate(), field) == value
+
+
+def test_config_defaults_of_setup_and_mxu_fields(default_config):
+    """As the JAX package: the matmul-DFT NTT is off, the engine is chosen
+    by the device, the repo's table cache is used."""
+    assert default_config.ntt_mxu == "off"
+    assert default_config.setup_engine == "auto"
+    assert default_config.fixed_base_window == 8
+    assert default_config.srs_cache_dir is None
+    assert default_config.msm_chunk_log == 22
+    with pytest.raises(TypeError):
+        config.configure(setup_device=True)

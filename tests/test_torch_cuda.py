@@ -1,5 +1,6 @@
-"""Kernels K1-K7 (G1 and G2) on the card against their plain PyTorch twins,
-exact; the default device; and no fallback when the kernel build fails.
+"""Kernels K1-K9 (G1 and G2) on the card against their plain PyTorch twins,
+exact; the matmul-DFT NTT and device setup on the card; the default device;
+and no fallback when the kernel build fails.
 
 Needs a CUDA device and nvcc; skips elsewhere. This file imports no JAX, so
 it runs where JAX is absent:
@@ -18,7 +19,7 @@ from kzg_tpu_torch.constants import P, R
 from kzg_tpu_torch.curve import G1, G2, cuda_ops, g2_from_device, g2_generator_device
 from kzg_tpu_torch.fields import FP, FR, cuda_field
 from kzg_tpu_torch.msm import msm_g2, pippenger
-from kzg_tpu_torch.ntt import Domain
+from kzg_tpu_torch.ntt import Domain, mxu
 
 pytestmark = pytest.mark.cuda
 
@@ -236,6 +237,77 @@ def test_g2_pippenger_kernels_and_msm(dev):
         assert after["g2_horner_join"] == before["g2_horner_join"] + 1
 
 
+@pytest.mark.parametrize("field,mod", [(FR, R), (FP, P)], ids=["Fr", "Fp"])
+def test_k8_mul_chain(dev, field, mod):
+    xs, ys = _ints(31, mod, 1000), _ints(32, mod, 1000)[::-1]
+    a = torch.from_numpy(field.encode(xs)).to(dev)
+    b = torch.from_numpy(field.encode(ys)).to(dev)
+    for k in (0, 1, 2, 65):
+        before = kernels.launch_counts()["mul_chain"]
+        got = cuda_field.mul_chain(field, k, a, b)
+        assert kernels.launch_counts()["mul_chain"] == before + 1
+        assert _equal(got, cuda_field.mul_chain_plain(field, k, a, b))
+    assert field.decode(got[:, :4]) == [x * pow(y, 65, mod) % mod for x, y in zip(xs[:4], ys[:4])]
+
+
+def test_k9_mxu_reduce_and_product(dev):
+    """K9 against its plain version on a real product's digit sums (a lane
+    count that is no multiple of 8, so the product pads) and on the largest
+    legal digit sums; the int8 product against the float64 one."""
+    x = _fr_words(dev, 33, (3, 32, 7))
+    planes = mxu.to_planes(x, 5)
+    y = mxu.digit_sums(5, True, planes)
+    assert _equal(y, mxu.digit_sums_plain(5, True, planes))
+    y = y.reshape(mxu.OUT_DIGITS, -1)
+    assert _equal(mxu.mxu_reduce(y), mxu.mxu_reduce_plain(y))
+    pairs = [min(31, d) - max(0, d - 31) + 1 for d in range(63)] + [0]
+    top = (torch.tensor(pairs, device=dev)[:, None] * (255 * 255 * 128)).expand(-1, 300)
+    top = top.to(torch.int32).contiguous()
+    assert _equal(mxu.mxu_reduce(top), mxu.mxu_reduce_plain(top))
+    for inverse in (False, True):
+        assert _equal(mxu.dft_axis2(5, inverse, x), mxu.dft_axis2(5, inverse, x, plain=True))
+
+
+def test_mxu_ntt_equals_butterfly_ntt(dev, monkeypatch):
+    """Domain transforms under ntt_mxu="auto" (balanced and pinned splits)
+    equal the K5 path word for word, launch K9 and no butterfly stage."""
+    for exp in (9, 14, 15):
+        dom = Domain(exp)
+        x = _fr_words(dev, 50 + exp, (dom.d,)) if exp == 9 else torch.cat(
+            [_fr_words(dev, 50 + exp, (512,))] * (dom.d // 512), dim=1)
+        monkeypatch.setattr(config, "_config",
+                            dataclasses.replace(config.get_config(), ntt_mxu="off"))
+        want = [getattr(dom, name)(x) for name in ("ntt", "intt", "coset_ntt", "coset_intt")]
+        monkeypatch.setattr(config, "_config",
+                            dataclasses.replace(config.get_config(), ntt_mxu="auto"))
+        kernels.reset_launches()
+        got = [getattr(dom, name)(x) for name in ("ntt", "intt", "coset_ntt", "coset_intt")]
+        counts = kernels.launch_counts()
+        assert all(_equal(a, b) for a, b in zip(got, want)), exp
+        assert counts["mxu_reduce"] > 0 and counts["ntt_stage"] == 0
+
+
+def test_setup_device_on_the_card(dev, monkeypatch):
+    """The default config takes the device route on a card; its SRS equals
+    the host engine's, and the Lagrange basis by the device route the host
+    route's."""
+    from kzg_tpu_torch.kzg import setup
+    from kzg_tpu_torch.kzg.eval_form import compute_lagrange_basis_from_secret
+
+    assert config.get_config().setup_engine == "auto"
+    kernels.reset_launches()
+    a = setup(7, 300)
+    assert kernels.launch_counts()["g1_add"] >= 32 and kernels.launch_counts()["g2_add"] >= 32
+    la = compute_lagrange_basis_from_secret(7, 5)
+    monkeypatch.setattr(config, "_config",
+                        dataclasses.replace(config.get_config(), setup_engine="host"))
+    b = setup(7, 300)
+    lb = compute_lagrange_basis_from_secret(7, 5)
+    assert all(t.is_cuda for t in a.gs + a.hs)
+    assert _equal(a.gs + a.hs, b.gs + b.hs)
+    assert _equal(la.lg + la.lh, lb.lg + lb.lh)
+
+
 def test_default_device_is_the_card(dev):
     from kzg_tpu_torch.kzg import setup
     from kzg_tpu_torch.poly import Polynomial
@@ -260,6 +332,10 @@ def test_no_fallback_when_the_build_fails(dev, monkeypatch):
         cuda_ops.g2_add(p, p)
     with pytest.raises(kernels.KernelError):
         cuda_ops.g2_dbl(p)
+    with pytest.raises(kernels.KernelError):
+        cuda_field.mul_chain(FR, 3, x, x)
+    with pytest.raises(kernels.KernelError):
+        mxu.mxu_reduce(torch.zeros((mxu.OUT_DIGITS, 8), dtype=torch.int32, device=dev))
     skip = torch.zeros(4, dtype=torch.bool, device=dev)
     with pytest.raises(kernels.KernelError):
         cuda_ops.g2_madd(p, p[:2], skip)

@@ -15,9 +15,10 @@ import pytest
 import torch
 
 from kzg_tpu import fields as jf
+from kzg_tpu.fields import pallas_field as jpf
 from kzg_tpu_torch import config, kernels
 from kzg_tpu_torch.constants import P, R
-from kzg_tpu_torch.fields import FP, FR
+from kzg_tpu_torch.fields import FP, FR, cuda_field
 from kzg_tpu_torch.fields.limb import pack16, unpack16
 
 FIELDS = [(FR, jf.FR, R), (FP, jf.FP, P)]
@@ -112,6 +113,34 @@ def test_sum_last_matches_jax(field, jfield, mod):
     a, ja = _both(field, jfield, xs)
     a, ja = a.reshape(field.W, 3, 7), ja.reshape(jfield.L, 3, 7)
     _same(field.sum_last(a), jfield.sum_last(ja))
+
+
+@pytest.mark.parametrize("field,jfield,mod", FIELDS, ids=IDS)
+@pytest.mark.parametrize("k", [1, 2, 5])
+def test_mul_chain_plain_matches_pallas_interpret_and_ints(field, jfield, mod, k):
+    """The plain version of kernel K8 against the Pallas `make_mul_chain`
+    in interpret mode (one 1024-lane block) and against Python ints:
+    a * b^k * R^-k."""
+    xs, ys = _ints(20 + k, mod, n=1024), _ints(30 + k, mod, n=1024)[::-1]
+    a, ja = _both(field, jfield, xs)
+    b, jb = _both(field, jfield, ys)
+    got = cuda_field.mul_chain_plain(field, k, a, b)
+    _same(got, jpf.make_mul_chain(jfield, k, interpret=True)(ja, jb))
+    assert torch.equal(got, cuda_field.make_mul_chain(field, k)(a, b))  # the CPU wrapper
+    assert field.decode(got[:, :8]) == [x * pow(y, k, mod) % mod for x, y in zip(xs[:8], ys[:8])]
+
+
+def test_mul_chain_edges():
+    a = torch.from_numpy(FR.encode(_ints(40, R)))
+    b = torch.from_numpy(FR.encode(_ints(41, R)))
+    assert torch.equal(cuda_field.mul_chain(FR, 0, a, b), a)
+    assert torch.equal(cuda_field.mul_chain(FR, 1, a, b), FR.mul(a, b))
+    assert torch.equal(cuda_field.mul_chain(FR, 3, a, b[:, :1]),  # broadcast operand
+                       FR.mul(FR.mul(FR.mul(a, b[:, :1]), b[:, :1]), b[:, :1]))
+    with pytest.raises(ValueError):
+        cuda_field.mul_chain(FR, -1, a, b)
+    with pytest.raises(kernels.KernelError):
+        cuda_field.mul_chain(FR, 1, a.to("meta"), b.to("meta"))
 
 
 def test_pack_unpack_round_trip_high_words():
