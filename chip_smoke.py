@@ -14,15 +14,19 @@ non-zero before the result line:
                 on 2^12 points (infinity, P+P, P+(-P) lanes), K6 madd on 2^12
                 and 2^11 lanes (skip, infinite, same and opposite lanes
                 planted), K7 madd_multi at the shape a 2^12-point MSM gives
-                it (16 steps over 37 x 128 bucket lanes; neg mask, same and
-                opposite steps planted), K3 one 2^15 MSM's buckets at c = 10,
-                K4 the window join at W = 37, c = 7 and at W = 26, c = 10,
+                it (16 steps over the sub-run lanes of 37 x 128 buckets; neg
+                mask, same and opposite steps planted) and the bucket loop's
+                launches, K3 on the sub-runs of one 2^15 MSM at c = 10 and
+                of 2^15 all-equal scalars (one bucket a window; that MSM
+                against the native engine's), K7 at the 2^15 witness's shape
+                (c = 9: its launches, the loop equal to the K3 route), K4
+                the window join at W = 37, c = 7 and at W = 26, c = 10,
                 K5 every stage of a 2^20 NTT in the Pease layout and in the
                 four-step layout, of a 2^12 Pease transform, and the whole
                 2^20 NTT against the domain's plain twin; over Fp2: add/dbl,
                 K6 and K7 as over Fp, K3 / K4 on a dense G2 MSM's buckets at
-                2^12 (c = 7) and at 2^15 (c = 10; there K3's twin walks
-                windows 0-24 and the native engine's MSM holds the whole); K8 mul_chain for Fr and Fp at
+                2^12 (c = 7) and at 2^15 (c = 10), every window, and the
+                native engine's MSM for the whole; K8 mul_chain for Fr and Fp at
                 2^15 lanes with k = 1, 2, 65 (timed at the probe's 2^19 lanes);
                 K9 mxu_reduce on the digit sums of a real 128-point DFT product
                 at 2^15 lanes and on the largest legal digit sums, timed on
@@ -83,7 +87,13 @@ non-zero before the result line:
                 route at 2^12 equal to the trusted one in `lg` and `lh`;
  18. counts   - launch counts of phases 15-17 (reset just before phase 15):
                 K8, K9 and every kernel device setup and the 2^20 path touch
-                must be > 0.
+                must be > 0;
+ 19. K3 2^20  - K3 alone at the 2^20 witness's shape (2^20 - 1 points,
+                c = 14), timed with its bound, its twin on the top window.
+K3 and K7 run over sub-runs of at most L points of each bucket's run
+(`msm.pippenger.split_runs`); each phase that runs them prints L, the
+number of sub-runs, the longest one, the most sub-runs of one bucket and,
+for K7, its launches an MSM.
 Setups other than phase 5's take the default engine, the device route.
 With --profile, the evaluation-form path is then profiled phase by phase
 (wall, launches, device time by kernel, idle share) and the table written
@@ -103,7 +113,7 @@ Montgomery multiplication of N words is counted as 2 N^2 + N multiply-adds
 (CIOS), a field add or sub as 2 N word operations, a point operation by its
 field multiplications (dbl 7, madd 11, add 16 over Fp; 16, 29, 43 over
 Fp2). Data-dependent kernels count what this run's inputs need (the points
-in non-empty buckets, the live lanes of a masked madd). `library_ms` is
+of the sub-runs, the live lanes of a masked madd). `library_ms` is
 null for every kernel: no PyTorch call computes 255- or 381-bit modular
 arithmetic.
 """
@@ -212,12 +222,11 @@ def point_bound(op, g2, lanes, coords_moved, live=None):
                  POINT_MULS[op][g2] * FP_MUL_MADS * live)
 
 
-def bucket_bound(g2, inputs, n_out):
-    """Bound of K3 on these inputs: every array once, one madd per point
-    that sits in a counted bucket."""
-    rows, order, start, count = inputs
-    nbytes = 4 * (rows.numel() + order.numel() + start.numel() + count.numel() + n_out)
-    return bound(nbytes, int(count.sum()) * POINT_MULS["madd"][g2] * FP_MUL_MADS)
+def runs_bound(g2, rows, order, runs, n_out):
+    """Bound of K3 on these sub-runs: every array once, one madd per point
+    of a sub-run (the points in counted buckets)."""
+    nbytes = 4 * (rows.numel() + order.numel() + 2 * runs.pos.numel() + n_out)
+    return bound(nbytes, int(runs.length.sum()) * POINT_MULS["madd"][g2] * FP_MUL_MADS)
 
 
 def horner_bound(g2, windows, c):
@@ -530,43 +539,44 @@ def main(argv=None) -> int:
 
         def madd_multi_case(curve, kname, kernel_fn, plain_fn, pts, g2):
             """K7 at the shape a 2^12-point MSM gives it (c = 7: 16 steps over
-            37 x 128 bucket lanes): the first two launches of the bucket loop
-            on random scalars, from infinity and from the first one's sums;
-            then the second with a neg mask, a lane whose step adds the
-            accumulator's own point and a lane that adds its opposite."""
+            the sub-run lanes of 37 x 128 buckets): the first two launches of
+            the bucket loop on random scalars, from infinity and from the
+            first one's sums; then the second with a neg mask, a lane whose
+            step adds the accumulator's own point and a lane that adds its
+            opposite. Then the whole loop, its K7 launches counted."""
             c7 = pippenger.effective_window(n)
             fuse = get_config().msm_fuse_steps
             ints = [rng.randrange(R) for _ in range(n)]
             std = FR.from_mont(torch.from_numpy(FR.encode(ints)).to(dev))
             inputs = pippenger.bucket_inputs(*pts, std, c7)
-            q0, skip0 = pippenger.loop_chunk(*inputs, 0, fuse)
-            q1, skip1 = pippenger.loop_chunk(*inputs, fuse, fuse)
+            runs = pippenger.split_runs(inputs[2], inputs[3], n)
+            q0, skip0 = pippenger.loop_chunk(inputs[0], inputs[1], runs, 0, fuse)
+            q1, skip1 = pippenger.loop_chunk(inputs[0], inputs[1], runs, fuse, fuse)
             q1 = tuple(t.contiguous() for t in q1)
-            acc0 = curve.infinity(tuple(inputs[2].shape), dev)
+            acc0 = curve.infinity((runs.pos.numel(),), dev)
             acc1 = kernel_fn(acc0, q0, skip0)
             err = max_abs_diff(acc1, plain_fn(acc0, q0, skip0))
             got = kernel_fn(acc1, q1, skip1)
             err = max(err, max_abs_diff(got, plain_fn(acc1, q1, skip1)))
-            check(err == 0, f"K7 {kname} S={fuse}, lanes {tuple(skip0.shape[1:])} (c = {c7}) "
+            lanes = runs.pos.numel()
+            check(err == 0, f"K7 {kname} S={fuse}, {lanes} sub-run lanes (c = {c7}) "
                   "equals plain on two launches of the bucket loop")
             ax, ay, ainf = curve.to_affine(acc1)
-            check(not bool(ainf[0, 5]) and not bool(ainf[0, 6]), "planted lanes hold points")
+            check(not bool(ainf[5]) and not bool(ainf[6]), "planted lanes hold points")
             skip_p = skip1.clone()
             gen_m = torch.Generator(device=dev).manual_seed(SEED + 7)
             neg = torch.rand(skip1.shape, generator=gen_m, device=dev) < 0.3
             for b, negate in ((5, False), (6, True)):
-                q1[0][..., 0, 0, b] = ax[..., 0, b]
-                q1[1][..., 0, 0, b] = ay[..., 0, b]
-                skip_p[0, 0, b] = False
-                skip_p[1:, 0, b] = True
-                neg[0, 0, b] = negate
+                q1[0][..., 0, b] = ax[..., b]
+                q1[1][..., 0, b] = ay[..., b]
+                skip_p[0, b] = False
+                skip_p[1:, b] = True
+                neg[0, b] = negate
             got = kernel_fn(acc1, q1, skip_p, neg)
             err = max(err, max_abs_diff(got, plain_fn(acc1, q1, skip_p, neg)))
             inf = curve.is_inf(got)
-            check(err == 0 and bool(inf[0, 6]) and not bool(inf[0, 5]),
+            check(err == 0 and bool(inf[6]) and not bool(inf[5]),
                   f"K7 {kname} with neg mask: P + P doubles, P + (-P) is infinity, equals plain")
-            w_, b_ = tuple(skip1.shape[1:])
-            lanes = w_ * b_
             kinfo[kname].update(
                 max_abs_err=err,
                 ms=cuda_ms(lambda: kernel_fn(acc1, q1, skip1), 10),
@@ -575,7 +585,14 @@ def main(argv=None) -> int:
                             POINT_MULS["madd"][g2] * FP_MUL_MADS * int((~skip1).sum())),
             )
             # the whole MSM on this route, and K4 at its window count
+            before = kernels.launch_counts()[kname]
             acc = pippenger._bucket_loop(curve, *inputs)
+            launches = kernels.launch_counts()[kname] - before
+            log(f"  bucket loop 2^{n.bit_length() - 1}, c = {c7} ({kname}): L {runs.run_length}, "
+                f"{lanes} sub-runs, longest {runs.longest}, most sub-runs of a bucket "
+                f"{runs.max_split}; {launches} K7 launches an MSM")
+            check(launches == -(-runs.longest // fuse) <= -(-runs.run_length // fuse),
+                  f"the bucket loop took ceil(longest / S) = {launches} K7 launches")
             s_all = pippenger.weighted_bucket_sum(curve, acc)
             return ints, s_all, c7
 
@@ -604,25 +621,60 @@ def main(argv=None) -> int:
               == native.g1_msm(pts_host[:n], ints12),
               "K7 + K2 + K4 MSM at 2^12 equals the native engine's")
 
+        def k3_case(label, pts, std, c, g2):
+            """K3 on the sub-runs of one MSM's buckets against its twin word
+            for word, every window; the route (split + K3 + combine on K2)
+            against the twin's partials combined on plain adds. K3 and the
+            route timed (CUDA events), the twin host-clocked, the bound from
+            these inputs. Returns (inputs, bucket sums, info)."""
+            inputs = pippenger.bucket_inputs(*pts, std, c)
+            rows, order = inputs[:2]
+            runs = pippenger.split_runs(inputs[2], inputs[3], rows.shape[0])
+            name = "K3-G2" if g2 else "K3"
+            log(f"  {name} {label}, c = {c}: rows {tuple(rows.shape)}, buckets "
+                f"{tuple(inputs[2].shape)}, fullest bucket {int(inputs[3].max())}; L "
+                f"{runs.run_length}, {runs.pos.numel()} sub-runs, longest {runs.longest}, most "
+                f"sub-runs of a bucket {runs.max_split}")
+            check(runs.longest <= runs.run_length, f"{name} {label}: no chain longer than L")
+            part = cuda_ops.bucket_runs(rows, order, runs.pos, runs.length)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = cuda_ops.bucket_runs_plain(rows, order, runs.pos, runs.length)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            err = max_abs_diff(part, want)
+            check(err == 0, f"{name} {label}, c={c} equals plain on all {inputs[2].shape[0]} "
+                  "windows")
+            got = cuda_ops.bucket_accumulate(*inputs)
+            err = max(err, max_abs_diff(got, pippenger.combine_runs(
+                cuda_ops.PLAIN2 if g2 else cuda_ops.PLAIN, want, runs)))
+            check(err == 0, f"{name} route {label} (split, K3, combine on K2) equals plain")
+            info = dict(err=err, plain_ms=plain_ms,
+                        ms=cuda_ms(lambda: cuda_ops.bucket_runs(rows, order, runs.pos,
+                                                                runs.length), 5),
+                        route_ms=cuda_ms(lambda: cuda_ops.bucket_accumulate(*inputs), 5),
+                        bound=runs_bound(g2, rows, order, runs, sum(t.numel() for t in part)))
+            log(f"  {name} {label}: kernel {info['ms']:.4f} ms, route (split + K3 + combine) "
+                f"{info['route_ms']:.4f} ms, plain {plain_ms:.2f} ms, bound "
+                f"{info['bound'][0]:.6f} ms [{card}]")
+            return inputs, got, info
+
         # K3 / K4: the buckets of one 2^15 MSM at c = 10
         scal = torch.from_numpy(FR.encode([rng.randrange(R) for _ in range(N_MAIN)])).to(dev)
-        inputs = pippenger.bucket_inputs(gx, gy, params.gs[2], FR.from_mont(scal), C_MAIN)
-        log(f"  K3 shapes: rows {tuple(inputs[0].shape)}, order {tuple(inputs[1].shape)}, "
-            f"buckets {tuple(inputs[2].shape)}, fullest bucket {int(inputs[3].max())}")
-        got = cuda_ops.bucket_accumulate(*inputs)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        want = cuda_ops.bucket_accumulate_plain(*inputs)
-        torch.cuda.synchronize()
-        k3_plain_ms = (time.perf_counter() - t0) * 1e3
-        err = max_abs_diff(got, want)
-        check(err == 0, "K3 bucket_accumulate 2^15, c=10 equals plain")
-        kinfo["g1_bucket_accumulate"].update(
-            max_abs_err=err,
-            ms=cuda_ms(lambda: cuda_ops.bucket_accumulate(*inputs), 5),
-            plain_ms=k3_plain_ms,
-            bound=bucket_bound(0, inputs, sum(t.numel() for t in got)),
-        )
+        inputs, got, k3 = k3_case("2^15", (gx, gy, params.gs[2]), FR.from_mont(scal), C_MAIN, 0)
+        # adversarial: all-equal scalars put every point of a window in one bucket
+        eq_int = rng.randrange(R)
+        scal_eq = torch.from_numpy(FR.encode([eq_int] * N_MAIN)).to(dev)
+        _, _, k3_eq = k3_case("2^15 all-equal scalars", (gx, gy, params.gs[2]),
+                              FR.from_mont(scal_eq), C_MAIN, 0)
+        kinfo["g1_bucket_accumulate"].update(max_abs_err=max(k3["err"], k3_eq["err"]),
+                                             ms=k3["ms"], plain_ms=k3["plain_ms"],
+                                             bound=k3["bound"])
+        report.update(k3_route_2e15_ms=k3["route_ms"], k3_equal_scalars_2e15_ms=k3_eq["ms"],
+                      k3_equal_scalars_route_2e15_ms=k3_eq["route_ms"])
+        check(g1_from_device(tuple(t[..., None] for t in msm_g1(params.gs, scal_eq, C_MAIN)))[0]
+              == native.g1_msm(pts_host, [eq_int] * N_MAIN),
+              "2^15 MSM of all-equal scalars (c = 10, K3) equals native.g1_msm")
         s_all = pippenger.weighted_bucket_sum(G1, got)
         got = cuda_ops.horner_join(s_all, C_MAIN)
         torch.cuda.synchronize()
@@ -642,6 +694,35 @@ def main(argv=None) -> int:
         want_pt = native.g1_msm(pts_host, scal_ints)
         check(g1_from_device(tuple(t[..., None] for t in got))[0] == want_pt,
               "K3 + K2 + K4 MSM equals the native engine's")
+
+        # K7 at the shape the 2^15 witness gives it: 2^15 - 1 points, c = 9
+        nw = N_MAIN - 1
+        c9 = pippenger.effective_window(nw)
+        std = FR.from_mont(torch.from_numpy(FR.encode([rng.randrange(R) for _ in range(nw)])).to(dev))
+        inputs = pippenger.bucket_inputs(gx[:, :nw], gy[:, :nw], params.gs[2][:nw], std, c9)
+        runs = pippenger.split_runs(inputs[2], inputs[3], nw)
+        fuse = get_config().msm_fuse_steps
+        q, skip = pippenger.loop_chunk(inputs[0], inputs[1], runs, 0, fuse)
+        acc0 = G1.infinity((runs.pos.numel(),), dev)
+        before = kernels.launch_counts()
+        loop_acc = pippenger._bucket_loop(G1, *inputs)
+        after = kernels.launch_counts()
+        k7_launches = after["g1_madd_multi"] - before["g1_madd_multi"]
+        check(max_abs_diff(loop_acc, cuda_ops.bucket_accumulate(*inputs)) == 0,
+              f"bucket loop 2^15 - 1, c = {c9} equals the K3 route word for word")
+        check(k7_launches == -(-runs.longest // fuse) <= -(-runs.run_length // fuse),
+              f"the 2^15 witness's bucket loop took ceil(longest / S) = {k7_launches} K7 launches")
+        report.update(
+            k7_witness_2e15_ms=cuda_ms(lambda: cuda_ops.madd_multi(acc0, q, skip), 10),
+            k7_witness_2e15_launches=k7_launches,
+            bucket_loop_witness_2e15_ms=cuda_ms(lambda: pippenger._bucket_loop(G1, *inputs), 3))
+        log(f"  K7 at the 2^15 witness shape (c = {c9}): L {runs.run_length}, "
+            f"{runs.pos.numel()} sub-run lanes, longest {runs.longest}, most sub-runs of a bucket "
+            f"{runs.max_split}; {k7_launches} K7 launches an MSM (combine: "
+            f"{after['g1_add'] - before['g1_add']} K2 adds), "
+            f"{report['k7_witness_2e15_ms']:.4f} ms a launch, bucket loop "
+            f"{report['bucket_loop_witness_2e15_ms']:.4f} ms [{card}]")
+        del loop_acc, q, skip, acc0
 
         # K5: every stage of one 2^20 NTT, in the Pease layout (bt = 1, the
         # 2^20 half table) and in the four-step layout (two passes of
@@ -760,31 +841,12 @@ def main(argv=None) -> int:
               == native.g2_msm(hs_host[:n], ints2),
               "K7-G2 + G2 add/dbl + K4-G2 MSM at 2^12 equals the native engine's")
 
-        def g2_bucket_kernels(pts, ints, c, label, twin_windows=None):
+        def g2_bucket_kernels(pts, ints, c, label):
             """K3 and K4 over Fp2 against their twins on one dense MSM's
-            buckets; returns (errors, kernel ms, plain ms, bounds). With
-            twin_windows the twin of K3 walks only the first so many windows
-            (its time is the fullest bucket's run, ~1,200 points in the short
-            top window of a 2^15 MSM against ~60 elsewhere); the MSM's
-            equality with the native engine's below holds the rest."""
+            buckets, every window; returns (errors, kernel ms, plain ms,
+            bounds)."""
             std = FR.from_mont(torch.from_numpy(FR.encode(ints)).to(dev))
-            inputs2 = pippenger.bucket_inputs(*pts, std, c)
-            log(f"  K3-G2 {label} shapes: rows {tuple(inputs2[0].shape)}, order "
-                f"{tuple(inputs2[1].shape)}, buckets {tuple(inputs2[2].shape)}, fullest bucket "
-                f"{int(inputs2[3].max())}")
-            got = cuda_ops.bucket_accumulate(*inputs2)
-            tw_ = inputs2[2].shape[0] if twin_windows is None else twin_windows
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            want = cuda_ops.bucket_accumulate_plain(
-                inputs2[0], *(t[:tw_].contiguous() for t in inputs2[1:]))
-            torch.cuda.synchronize()
-            k3_plain = (time.perf_counter() - t0) * 1e3
-            k3_err = max_abs_diff(tuple(t[..., :tw_, :] for t in got), want)
-            check(k3_err == 0, f"K3-G2 bucket_accumulate {label}, c={c} equals plain on "
-                  f"{tw_} of {inputs2[2].shape[0]} windows")
-            k3_ms = cuda_ms(lambda: cuda_ops.bucket_accumulate(*inputs2), 5)
-            k3_bound = bucket_bound(1, inputs2, sum(t.numel() for t in got))
+            _, got, k3g2 = k3_case(label, pts, std, c, 1)
             s_all = pippenger.weighted_bucket_sum(G2, got)
             got = cuda_ops.horner_join(s_all, c)
             torch.cuda.synchronize()
@@ -799,20 +861,18 @@ def main(argv=None) -> int:
             check(g2_from_device(tuple(t[..., None] for t in got))[0]
                   == native.g2_msm(hs_host[:len(ints)], ints),
                   f"K3-G2 + G2 add/dbl + K4-G2 MSM {label} equals the native engine's")
-            log(f"  K3-G2 {label}: kernel {k3_ms:.4f} ms, plain {k3_plain:.2f} ms; K4-G2 "
-                f"W={windows}, c={c}: kernel {k4_ms:.4f} ms, plain {k4_plain:.2f} ms [{card}]")
-            return ((k3_err, k4_err), (k3_ms, k4_ms), (k3_plain, k4_plain),
-                    (k3_bound, horner_bound(1, windows, c)))
+            log(f"  K4-G2 W={windows}, c={c}: kernel {k4_ms:.4f} ms, plain {k4_plain:.2f} ms "
+                f"[{card}]")
+            return ((k3g2["err"], k4_err), (k3g2["ms"], k4_ms), (k3g2["plain_ms"], k4_plain),
+                    (k3g2["bound"], horner_bound(1, windows, c)))
 
         # a dense 2^12-point MSM's buckets through K3 (c = 7; the MSM itself
-        # takes the bucket loop at this size), every window against the twin;
-        # then the shape the G2 MSM path gives K3 and K4: 2^15 points,
-        # c = 10, the twin on windows 0-24 and the native engine's MSM for
-        # the whole (the twin's walk of window 25 alone takes two minutes)
+        # takes the bucket loop at this size); then the shape the G2 MSM
+        # path gives K3 and K4: 2^15 points, c = 10; every window against
+        # the twins, and the native engine's MSM for the whole
         errs12, ms12, _, _ = g2_bucket_kernels(hs12, ints2, c2, "2^12")
         report.update(g2_bucket_accumulate_2e12_ms=ms12[0], g2_horner_join_2e12_ms=ms12[1])
-        errs, ms, plain, bounds = g2_bucket_kernels(params.hs, scal_ints, C_MAIN, "2^15",
-                                                    twin_windows=25)
+        errs, ms, plain, bounds = g2_bucket_kernels(params.hs, scal_ints, C_MAIN, "2^15")
         for i, kname in enumerate(("g2_bucket_accumulate", "g2_horner_join")):
             kinfo[kname].update(max_abs_err=max(errs[i], errs12[i]), ms=ms[i],
                                 plain_ms=plain[i], bound=bounds[i])
@@ -1322,6 +1382,7 @@ def main(argv=None) -> int:
         report.update(setup_device_2e20_s=setup20_s, commit_2e20_s=commit20_s,
                       points_per_s_2e20=n20 / commit20_s, witness_2e20_s=witness20_s,
                       verify_2e20_s=verify20_s)
+        big_gs = big.gs  # K3 is timed at the witness's shape after the count (phase 19)
         del big, prover, verifier, poly
 
     with phase(f"Lagrange SRS from the secret, device route 2^{EXP_EVAL}"):
@@ -1347,6 +1408,39 @@ def main(argv=None) -> int:
                   "matmul-DFT, device-setup and 2^20 path")
         counts = {k: counts_single[k] + counts_batched[k] + counts_eval[k] + counts_big[k]
                   for k in counts_eval}
+
+    # ---- 19. K3 alone at the 2^20 witness's shape, outside the counted run ---------------------
+    with phase("K3 at the 2^20 witness shape"):
+        n19 = n20 - 1
+        c14 = pippenger.effective_window(n19)
+        std = FR.from_mont(random_fr_words(torch.Generator(device=dev).manual_seed(SEED + 19),
+                                           (n19,), dev))
+        inputs = pippenger.bucket_inputs(*(t[..., :n19] for t in big_gs), std, c14)
+        rows, order = inputs[:2]
+        runs = pippenger.split_runs(inputs[2], inputs[3], n19)
+        # the twin walks the top window: its 3-bit digits give the long runs
+        top = pippenger.split_runs(inputs[2][-1:], inputs[3][-1:], n19, runs.run_length)
+        order_top = order[-1:].contiguous()
+        got = cuda_ops.bucket_runs(rows, order_top, top.pos, top.length)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = cuda_ops.bucket_runs_plain(rows, order_top, top.pos, top.length)
+        torch.cuda.synchronize()
+        top_plain_ms = (time.perf_counter() - t0) * 1e3
+        check(max_abs_diff(got, want) == 0,
+              f"K3 on the top window's {top.pos.numel()} sub-runs at 2^20 - 1, c = {c14} equals "
+              "plain")
+        k3_20_ms = cuda_ms(lambda: cuda_ops.bucket_runs(rows, order, runs.pos, runs.length), 5)
+        route_20_ms = cuda_ms(lambda: cuda_ops.bucket_accumulate(*inputs), 5)
+        b20 = runs_bound(0, rows, order, runs, 3 * 12 * runs.pos.numel())
+        log(f"  K3 2^20 - 1, c = {c14}: buckets {tuple(inputs[2].shape)}, fullest bucket "
+            f"{int(inputs[3].max())}; L {runs.run_length}, {runs.pos.numel()} sub-runs, longest "
+            f"{runs.longest}, most sub-runs of a bucket {runs.max_split}; kernel {k3_20_ms:.4f} ms, "
+            f"route (split + K3 + combine) {route_20_ms:.4f} ms, bound {b20[0]:.6f} ms "
+            f"({b20[1]}); the twin on the top window {top_plain_ms:.2f} ms [{card}]")
+        report.update(k3_witness_2e20_ms=k3_20_ms, k3_route_witness_2e20_ms=route_20_ms,
+                      k3_witness_2e20_bound_ms=b20[0])
+        del big_gs, inputs, rows, order, got, want
 
     if args.profile:
         with phase(f"profile of the evaluation-form path 2^{EXP_EVAL}"):

@@ -276,33 +276,49 @@ madd_multi_kernel(uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
   store_point<E>(ox, oy, oz, n, i, acc);
 }
 
-// rows: (n, 2 * Coord<E>::kWords) words, point k's x then y (see the
-// layouts above); order: (W, n) sort order per window; start / count:
-// (W, B); outputs one coordinate batch of W * B points each. A thread with
-// count 0 writes infinity.
+// K3, one thread per sub-run. rows: (n, 2 * Coord<E>::kWords) words,
+// point k's x then y (see the layouts above); order: the flattened (W * n)
+// sort order of all windows; pos / len: (m) sub-runs, at most L points each
+// (msm.pippenger.split_runs), longest first so a warp's threads run equal
+// trip counts. Thread t folds the len[t] points order[pos[t] ...] into an
+// accumulator that starts at infinity and writes partial sum t once.
+//
+// Minimum resident blocks of K3 an SM, for __launch_bounds__ (registers
+// <= 65,536 / (128 * blocks) a thread). Timed on an H100 at 1, 2 and 3
+// (bench/runs_sweep.py, PERF.md): over Fp, 3 (168 registers, 92 B
+// spilled) runs the 2^20 MSM shapes 9-14 % faster than ptxas's own 230
+// registers, two blocks an SM, and 2 % slower at 2^15; over Fp2, 3 spills
+// 1.8 KB and runs 39-56 % slower, so it keeps 1 (255 registers, 580 B
+// spilled). KZG_K3_MIN_BLOCKS, when defined, sets both (the sweep's
+// variants).
 template <class E>
-__global__ void __launch_bounds__(kPointThreads)
+struct K3MinBlocks {
+#ifdef KZG_K3_MIN_BLOCKS
+  static constexpr int value = KZG_K3_MIN_BLOCKS;
+#else
+  static constexpr int value = Coord<E>::kWords == kW ? 3 : 1;
+#endif
+};
+
+template <class E>
+__global__ void __launch_bounds__(kPointThreads, K3MinBlocks<E>::value)
 bucket_accumulate_kernel(uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
                          uint32_t* __restrict__ oz, const uint32_t* __restrict__ rows,
-                         const int32_t* __restrict__ order,
-                         const int32_t* __restrict__ start,
-                         const int32_t* __restrict__ count, int windows, int buckets,
-                         long long n) {
+                         const int32_t* __restrict__ order, const int32_t* __restrict__ pos,
+                         const int32_t* __restrict__ len, long long m) {
   constexpr int kC = Coord<E>::kWords;
-  const long long total = (long long)windows * buckets;
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  const int32_t* ord = order + (t / buckets) * n;
-  const int s = start[t];
-  const int c = count[t];
+  if (t >= m) return;
+  const int32_t* ord = order + pos[t];
+  const int c = len[t];
   Jac<E> acc = infinity<E>();
   for (int k = 0; k < c; k++) {
-    const uint32_t* row = rows + (long long)ord[s + k] * (2 * kC);
+    const uint32_t* row = rows + (long long)ord[k] * (2 * kC);
     const E qx = Coord<E>::load_row(row);
     const E qy = Coord<E>::load_row(row + kC);
     acc = madd(acc, qx, qy);
   }
-  store_point<E>(ox, oy, oz, total, t, acc);
+  store_point<E>(ox, oy, oz, m, t, acc);
 }
 
 // s*: one coordinate batch of W window sums each; out: one point. MSB
@@ -380,16 +396,14 @@ int launch_madd_multi(void* ox, void* oy, void* oz, const void* ax, const void* 
 
 template <class E>
 int launch_bucket_accumulate(void* ox, void* oy, void* oz, const void* rows,
-                             const void* order, const void* start, const void* count,
-                             int windows, int buckets, long long n, void* stream) {
-  const long long total = (long long)windows * buckets;
-  if (total <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
-  bucket_accumulate_kernel<E><<<blocks_for(total), kPointThreads, 0,
+                             const void* order, const void* pos, const void* len, long long m,
+                             void* stream) {
+  if (m <= 0) return (int)cudaErrorInvalidValue;
+  bucket_accumulate_kernel<E><<<blocks_for(m), kPointThreads, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint32_t*>(ox), static_cast<uint32_t*>(oy), static_cast<uint32_t*>(oz),
       static_cast<const uint32_t*>(rows), static_cast<const int32_t*>(order),
-      static_cast<const int32_t*>(start), static_cast<const int32_t*>(count), windows,
-      buckets, n);
+      static_cast<const int32_t*>(pos), static_cast<const int32_t*>(len), m);
   return (int)cudaGetLastError();
 }
 

@@ -24,16 +24,22 @@
 //     the thread's chain of up to S madds (11 Fp multiplications each).
 // K3  kzg_g1_bucket_accumulate    replaces _PointKernels.bucket_accumulate
 //     (pallas_ops.py:388). One launch for all windows, one thread per
-//     (window, bucket): the thread walks its run of the window's stable
-//     sort order and madds each affine point into its accumulator, then
-//     writes the bucket sum once. The TPU kernel's sequential grid of
-//     1024-lane blocks, its double-buffered DMA of 8-point chunks and its
-//     misalignment masks disappear: a thread reads each point (96
-//     contiguous bytes of x || y words, six 16-byte loads) through the
-//     sort order from a table small enough to stay in L2. Bound: the
-//     madd chain of the fullest bucket of each warp and register pressure
-//     (36-word accumulator, 24-word point, madd temporaries), hence
-//     __launch_bounds__(128).
+//     SUB-RUN: msm.pippenger.split_runs cuts each bucket's run of the
+//     window's stable sort order into pieces of at most L points, L from
+//     n and B alone, longest first, and the thread madds each affine point
+//     of its piece into its accumulator, then writes the partial once; a
+//     segmented tree of K2 adds (msm.pippenger.combine_runs) sums the
+//     pieces of a bucket. The TPU kernel's sequential grid of 1024-lane
+//     blocks, its double-buffered DMA of 8-point chunks, its misalignment
+//     masks, its trip cap and the segmented-scan fallback disappear.
+//     Bound: the madd chain (<= L madds of 11 Fp multiplications each) and
+//     the total madds at the measured multiply rate (K8: 1.54e10 Fp
+//     multiplications a second). Not memory: a madd reads one 96-byte row
+//     (six 16-byte loads, through the sort order) for tens of microseconds
+//     of dependent arithmetic, even at 2^20 where the 96 MB table exceeds
+//     the 50 MB L2, so no TMA or cp.async stage. Tensor cores do not apply
+//     to CIOS on 32-bit words. Registers: 168 under __launch_bounds__(128,
+//     3), 92 B spilled, three blocks an SM (point.cuh, K3MinBlocks).
 // K4  kzg_g1_horner_join          replaces _PointKernels.horner_join
 //     (pallas_ops.py:590). sum_w 2^(c w) S_w, MSB window first: c
 //     doublings (infinity kept fixed) then one add per window. A
@@ -73,11 +79,11 @@ int kzg_g1_madd_multi(void* ox, void* oy, void* oz, const void* ax, const void* 
   return launch_madd_multi<FpE>(ox, oy, oz, ax, ay, az, qx, qy, skip, neg, steps, n, stream);
 }
 
+// rows (n, 24); order (W * n) int32; pos / len (m) int32 sub-runs; out (12, m)
 int kzg_g1_bucket_accumulate(void* ox, void* oy, void* oz, const void* rows,
-                             const void* order, const void* start, const void* count,
-                             int windows, int buckets, long long n, void* stream) {
-  return launch_bucket_accumulate<FpE>(ox, oy, oz, rows, order, start, count, windows,
-                                       buckets, n, stream);
+                             const void* order, const void* pos, const void* len, long long m,
+                             void* stream) {
+  return launch_bucket_accumulate<FpE>(ox, oy, oz, rows, order, pos, len, m, stream);
 }
 
 int kzg_g1_horner_join(void* ox, void* oy, void* oz, const void* sx, const void* sy,

@@ -28,18 +28,25 @@ limb planes, which the register-resident thread removes.
 K3 `bucket_accumulate` replaces `_PointKernels.bucket_accumulate`
 (`pallas_ops.py:388`). The TPU version walked one window per launch over a
 sequential grid of 1024-bucket blocks, DMA-ing each bucket's sorted run in
-8-point chunks. Here ONE launch covers every (window, bucket) with one
-thread per bucket: the thread walks its run [start, start + count) of the
-window's stable sort order and folds each affine point into a Jacobian
-accumulator with madd-2007-bl (exceptional cases included), then writes the
-bucket sum once. Points are read through the sort order from a row-major
-(n, 24) table of x || y words, 96 contiguous bytes per point, instead of
-from rows permuted per window: at 2^15 points the table is 3 MB and stays
-in the 50 MB L2, so the indirect read costs no device-memory pass, where a
-per-window permutation would write and read W copies of it. Bound: the
-madd chain of the fullest bucket in each warp (~N / 2^c points) and
-register pressure (36-word accumulator + 24-word point + temporaries,
-`__launch_bounds__(128)`).
+8-point chunks, its trip count capped and skew sent to a segmented scan.
+Here `msm.pippenger.split_runs` first cuts every bucket's run into
+sub-runs of at most L points, L = max(16, ceil(n / B)) from the shapes
+alone, and ranks them longest first; then ONE launch (`bucket_runs`)
+covers every sub-run of every window with one thread each: the thread walks
+its positions of the flattened sort order and folds each affine point into
+a Jacobian accumulator with madd-2007-bl (exceptional cases included),
+then writes its partial sum once; `msm.pippenger.combine_runs` adds the
+partials of each cut bucket by a segmented pairwise tree on K2. Points are
+read through the sort order from a row-major (n, 24) table of x || y
+words, 96 contiguous bytes per point (192 over Fp2), instead of from rows
+permuted per window. Bound: the madd chain, <= L madds a thread, and the
+total, count.sum() madds at the card's multiply rate (K8 measures 1.54e10
+Fp multiplications a second, so the ~20 M madds of a 2^20 MSM are ~15 ms).
+Not memory: a madd reads one row for ~40 us of dependent arithmetic, even
+at 2^20 where the 96 MB table exceeds the 50 MB L2, so there is no TMA or
+cp.async stage to hide anything behind. Tensor cores do not apply to CIOS
+on 32-bit words. Registers: G1 168 under `__launch_bounds__(128, 3)`, 92 B
+spilled; G2 255, 580 B spilled (`csrc/point.cuh`, K3MinBlocks).
 
 K4 `horner_join` replaces `_PointKernels.horner_join` (`pallas_ops.py:590`):
 sum_w 2^(c*w) * S_w, MSB window first, c doublings (infinity kept fixed)
@@ -62,13 +69,16 @@ opposite -> (1, 1, 0). It is the body of the digit ladder
 K2: one thread's chain of field multiplications (7M + 4S).
 
 K7 `madd_multi` / `g2_madd_multi` replace `_PointKernels.madd_multi`
-(`pallas_ops.py:275`): S skip-masked, optionally negated madds per bucket
-lane in one launch, the fused step of the bucket loop that serves windows
-of fewer than 1024 buckets (`msm.pippenger._bucket_loop`). The TPU kernel
-revisited the accumulator block in VMEM across a minor grid axis of S
-steps; here one thread per lane keeps the accumulator in registers and
-reads step s's point from the step-major (12[, 2], S, B) batch, coalesced
-over lanes. Bound: one thread's chain of up to S madds.
+(`pallas_ops.py:275`): S skip-masked, optionally negated madds per lane in
+one launch, the fused step of the bucket loop that serves windows of fewer
+than 1024 buckets (`msm.pippenger._bucket_loop`). The loop runs over the
+sub-run lanes of `split_runs`, so it takes ceil(longest sub-run / S) <=
+ceil(L / S) launches whatever the digits, then the same combine as K3. The
+TPU kernel revisited the accumulator block in VMEM across a minor grid
+axis of S steps; here one thread per lane keeps the accumulator in
+registers and reads step s's point from the step-major (12[, 2], S, M)
+batch, coalesced over lanes. Bound: one thread's chain of up to S madds,
+and the lanes' total madds at the multiply rate.
 
 Each wrapper takes the plain twin for CPU tensors and launches its kernel
 for CUDA tensors; `*_plain` are the twins, usable on any device.
@@ -110,6 +120,14 @@ class _Group:
 
     def counter(self, op: str):
         return kernels.REGISTRY[f"{self.name}_{op}"]
+
+    # the curve interface `msm.pippenger.combine_runs` needs: K2 add (its
+    # twin on CPU tensors) and infinity
+    def add(self, p, q):
+        return _add(self, p, q)
+
+    def infinity(self, batch_shape=(), device=None):
+        return self.plain.infinity(batch_shape, device)
 
 
 _G1K = _Group("g1", (_W,), PLAIN)
@@ -343,61 +361,94 @@ def rows_to_affine(q, batch):
     return q[0], q[1]
 
 
-def bucket_accumulate_plain(rows, order, start, count):
-    """Plain twin of K3 on any device, for G1 rows (n, 24) or G2 rows
-    (n, 48): all (window, bucket) accumulators advance together, step k
-    folding in the k-th point of every bucket's run (masked where
-    k >= count), so each bucket sees its run in the same ascending order as
-    the kernel's thread."""
+def _runs_checked(rows, order, pos, length):
+    """K3's operands, checked: rows (n, 24 | 48), order (W, n), pos /
+    length (M,), all int32 on one device; positions into the flattened
+    order must fit int32."""
     group = _row_group(rows)
-    windows, buckets = start.shape
-    n = order.shape[-1]
-    acc = group.plain.infinity((windows, buckets), rows.device)
-    steps = int(count.max()) if count.numel() else 0
-    for k in range(steps):
-        valid = count > k
-        pos = (start + k).clamp(max=n - 1).to(torch.int64)
-        idx = order.to(torch.int64).gather(1, pos)  # (W, B) point indices
-        q = rows_to_affine(rows[idx.reshape(-1)], (windows, buckets))
-        acc = group.plain.madd(acc, q, ~valid)
+    what = f"{group.name}_bucket_accumulate"
+    n = rows.shape[0]
+    windows = order.shape[0] if order.dim() == 2 else -1
+    m = pos.numel()
+    for t, shape, name in ((rows, (n, 2 * group.words), "rows"), (order, (windows, n), "order"),
+                           (pos, (m,), "pos"), (length, (m,), "length")):
+        if t.dtype != torch.int32 or t.device != rows.device or tuple(t.shape) != shape:
+            raise kernels.KernelError(
+                f"{what}: {name} must be int32 {shape} on {rows.device}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+    if windows * n >= 1 << 31:
+        raise kernels.KernelError(f"{what}: {windows} x {n} sort positions exceed int32")
+    return group
+
+
+def bucket_runs_plain(rows, order, pos, length):
+    """Plain twin of K3 on any device, G1 rows (n, 24) or G2 rows (n, 48):
+    all M sub-run accumulators advance together, step k folding in the
+    k-th point of every sub-run (masked where k >= length), so each sees
+    its points in the same ascending order as the kernel's thread."""
+    group = _runs_checked(rows, order, pos, length)
+    m = pos.numel()
+    flat = order.reshape(-1).to(torch.int64)
+    acc = group.plain.infinity((m,), rows.device)
+    for k in range(int(length.max()) if m else 0):
+        idx = flat[(pos.to(torch.int64) + k).clamp(max=flat.numel() - 1)]
+        acc = group.plain.madd(acc, rows_to_affine(rows[idx], (m,)), length <= k)
     return acc
 
 
-def bucket_accumulate(rows, order, start, count):
-    """K3: per (window, bucket), the sum of the affine points of the
-    bucket's run; G1 or G2 by the row width.
+def bucket_runs(rows, order, pos, length):
+    """K3: the sum of the affine points of each sub-run, one thread each.
 
-    rows:  (n, 24) int32 for G1 or (n, 48) for G2 (`point_rows`);
-    order: (W, n) int32, each window's stable sort of the points by digit;
-    start, count: (W, B) int32, bucket b of window w is the run
-           order[w, start : start + count] (callers zero bucket 0's count).
-    Returns Jacobian bucket sums, 3 x (12, W, B) for G1 or 3 x (12, 2, W, B)
-    for G2 (infinity where empty)."""
+    rows:   (n, 24) int32 for G1 or (n, 48) for G2 (`point_rows`);
+    order:  (W, n) int32, each window's stable sort of the points by digit;
+    pos, length: (M,) int32, sub-run i is the points order.flat[pos[i] :
+            pos[i] + length[i]] (`msm.pippenger.split_runs`).
+    Returns Jacobian partial sums, 3 x (12, M) for G1 or 3 x (12, 2, M) for
+    G2 (infinity where a sub-run is empty)."""
     if _is_cpu(rows):
-        return bucket_accumulate_plain(rows, order, start, count)
-    group = _row_group(rows)
-    what = f"{group.name}_bucket_accumulate"
-    dev = rows.device
-    windows, buckets = start.shape
-    n = rows.shape[0]
-    for t, shape, name in ((rows, (n, 2 * group.words), "rows"), (order, (windows, n), "order"),
-                           (start, (windows, buckets), "start"),
-                           (count, (windows, buckets), "count")):
-        if t.dtype != torch.int32 or t.device != dev or tuple(t.shape) != shape:
-            raise kernels.KernelError(
-                f"{what}: {name} must be int32 {shape} on {dev}, got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device}"
-            )
-    ins = [t.contiguous() for t in (rows, order, start, count)]
-    out = [torch.empty(group.lead + (windows, buckets), dtype=torch.int32, device=dev)
+        return bucket_runs_plain(rows, order, pos, length)
+    group = _runs_checked(rows, order, pos, length)
+    m = pos.numel()
+    out = [torch.empty(group.lead + (m,), dtype=torch.int32, device=rows.device)
            for _ in range(3)]
-    if windows * buckets:
-        rc = group.entry("bucket_accumulate")(
-            *_ptrs(out), *_ptrs(ins), windows, buckets, n, kernels.stream_handle(dev)
-        )
-        kernels.check_status(rc, what)
+    if m:
+        ins = [t.contiguous() for t in (rows, order, pos, length)]
+        rc = group.entry("bucket_accumulate")(*_ptrs(out), *_ptrs(ins), m,
+                                              kernels.stream_handle(rows.device))
+        kernels.check_status(rc, f"{group.name}_bucket_accumulate")
         group.counter("bucket_accumulate").launches += 1
     return tuple(out)
+
+
+def _bucket_sums(runs_fn, curve, rows, order, start, count, run_length):
+    # the split and the combine live in the MSM layer, which imports this
+    # module, so they are imported at the call
+    from ..msm import pippenger
+
+    runs = pippenger.split_runs(start, count, order.shape[-1], run_length)
+    return pippenger.combine_runs(curve, runs_fn(rows, order, runs.pos, runs.length), runs)
+
+
+def bucket_accumulate_plain(rows, order, start, count, run_length=None):
+    """Plain twin of the K3 route on any device: the same split, the plain
+    twin of K3 on the sub-runs, the same combine tree on plain adds."""
+    return _bucket_sums(bucket_runs_plain, _row_group(rows).plain, rows, order, start, count,
+                        run_length)
+
+
+def bucket_accumulate(rows, order, start, count, run_length=None):
+    """Per (window, bucket), the sum of the affine points of the bucket's
+    run; G1 or G2 by the row width. The run is cut into sub-runs of at most
+    L points (`msm.pippenger.split_runs`, L = `run_length` or the default
+    from n and B), K3 sums every sub-run in one launch, and
+    `msm.pippenger.combine_runs` adds the partials of each bucket on K2.
+
+    rows, order as `bucket_runs`; start, count: (W, B) int32, bucket b of
+    window w is the run order[w, start : start + count] (callers zero
+    bucket 0's count). Returns Jacobian bucket sums, 3 x (12, W, B) for G1
+    or 3 x (12, 2, W, B) for G2 (infinity where empty)."""
+    return _bucket_sums(bucket_runs, _row_group(rows), rows, order, start, count, run_length)
 
 
 # ---- K4: Horner window join ---------------------------------------------------------------

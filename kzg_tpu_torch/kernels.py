@@ -185,12 +185,12 @@ _SIGNATURES = {
     "kzg_g2_dbl": (_P,) * 6 + (_N, _P),
     # (out, x, twiddles, nb, m, bt, table length, stage, stream)
     "kzg_ntt_stage": (_P,) * 3 + (_N,) * 4 + (_I, _P),
-    # (ox, oy, oz, rows, order, start, count, windows, buckets, n, stream)
-    "kzg_g1_bucket_accumulate": (_P,) * 7 + (_I, _I, _N, _P),
+    # (ox, oy, oz, rows, order, sub-run pos, sub-run len, sub-runs, stream)
+    "kzg_g1_bucket_accumulate": (_P,) * 7 + (_N, _P),
     # (ox, oy, oz, sx, sy, sz, windows, c, stream)
     "kzg_g1_horner_join": (_P,) * 6 + (_I, _I, _P),
     # G2: rows (n, 48), outputs (12, 2, W, B) / (12, 2)
-    "kzg_g2_bucket_accumulate": (_P,) * 7 + (_I, _I, _N, _P),
+    "kzg_g2_bucket_accumulate": (_P,) * 7 + (_N, _P),
     "kzg_g2_horner_join": (_P,) * 6 + (_I, _I, _P),
     # (ox, oy, oz, x1, y1, z1, x2, y2, skip bytes, n, stream)
     "kzg_g1_madd": (_P,) * 9 + (_N, _P),

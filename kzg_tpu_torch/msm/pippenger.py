@@ -6,29 +6,38 @@
     bucket's points form one run of the sort order; `torch.searchsorted`
     finds every run; points at infinity are forced into bucket 0, and
     bucket 0's count is zeroed;
-  * the buckets are accumulated as the reference's `msm_impl="runs"` does:
-    with 1024 buckets a window or more (c >= 10, from 2^15 points), kernel
-    K3 accumulates every bucket of every window in ONE launch; with fewer
-    (`:480-481`), the reference's v1 bucket loop (`:234-345`) runs on
-    kernel K7, `madd_multi`: step k adds the k-th point of every bucket's
-    run, `msm_fuse_steps` steps to a launch (`_bucket_loop`);
+  * every bucket's run is cut into sub-runs of at most L consecutive
+    positions (`split_runs`; L from the point and bucket counts only,
+    `default_run_length`), so no serial chain is longer than L whatever
+    the digits;
+  * the sub-runs are summed as the reference's `msm_impl="runs"` routes its
+    buckets: with 1024 buckets a window or more (c >= 10, from 2^15
+    points), kernel K3 sums every sub-run of every window in ONE launch;
+    with fewer (`:480-481`), the reference's v1 bucket loop (`:234-345`)
+    runs on kernel K7, `madd_multi`, over the sub-run lanes: step k adds
+    the k-th point of every sub-run, `msm_fuse_steps` steps to a launch,
+    ceil(L / msm_fuse_steps) launches at most (`_bucket_loop`);
+  * a bucket's sum is a segmented pairwise tree over its sub-runs' partial
+    sums on kernel K2 (`combine_runs`), the same tree on both routes;
   * the bucket reduction sum_b b * B_b (`weighted_bucket_sum`) and the
     point sums are the pairwise tree forms of the JAX package's kernel path
     (`:159-231`), on kernel K2;
   * kernel K4 joins the windows (Horner, MSB first).
 
 Deviations from the reference:
-  * the bucket loop advances the buckets of ALL windows together (the
+  * the bucket loop advances the sub-runs of ALL windows together (the
     reference scans the windows one by one, a window's 128 to 512 buckets
     to a launch), and gathers its points through the sort order from the
     one row table instead of from rows permuted per window. Points at
     infinity get digit 0, as in the runs structure, so the rows carry no
     infinity column.
-  * no capped-trip segmented-scan fallback (`:262,309-340`, `:546-571`). On
-    the TPU a grid block runs to the maximum trip count of its buckets, so
-    skewed digits cost the whole block; on the GPU a skewed bucket only
-    slows its own thread, never the result. The bucket loop pays for skew
-    in launches: its trip count is the fullest bucket's.
+  * skew is bounded by the split, not by the reference's capped trip count
+    and its segmented-scan fallback (`:262,309-340`, `:508`, `:546-573`): a
+    bucket of m points is ceil(m / L) chains of at most L madds, run side
+    by side, then ceil(log2(m / L)) batched adds, in every window and on
+    both routes, so there is no second path to switch to. The sub-runs are
+    ranked longest first, so the threads of a warp run equal trip counts:
+    the reference's occupancy ranking (`:529-540`), done for warps.
 Below small_msm_threshold points a batched double-and-add ladder on K2 plus
 a tree sum is used (`_msm_small`), as in the reference. MSMs are not chunked
 above 2^msm_chunk_log points yet (the reference's `:818-833`).
@@ -40,6 +49,7 @@ it.
 """
 
 import math
+from dataclasses import dataclass
 
 import torch
 
@@ -178,35 +188,136 @@ def bucket_inputs(xa, ya, inf, scalars_std, c: int):
 # bucket loop on K7, as in the reference (`:478-481`)
 RUNS_MIN_BUCKETS = 1024
 
+# L = max(RUN_MIN, RUN_MEAN_FACTOR * ceil(n / B)) (`default_run_length`)
+RUN_MIN = 16
+RUN_MEAN_FACTOR = 1
 
-def loop_chunk(rows, order, start, count, k0: int, fuse: int):
-    """Steps k0 .. k0 + fuse - 1 of the bucket loop as `madd_multi` takes
-    them: the affine points (x, y) of shape (12[, 2], S, W, B), point s of
-    lane (w, b) being the (k0 + s)-th of that bucket's run (a clamped, masked
-    read past its end), and the (S, W, B) skip mask k0 + s >= count."""
+
+def default_run_length(n: int, buckets: int, factor: int = RUN_MEAN_FACTOR) -> int:
+    """L, the longest serial madd chain of an MSM of n points over `buckets`
+    buckets a window: `factor` times the mean bucket, at least RUN_MIN.
+    From the shapes only, as the reference derives its trip cap (`:508`),
+    so both routes, whatever `msm_fuse_steps` is, cut the same sub-runs.
+    1x, 2x and 4x the mean were timed on an H100 (`bench.runs_sweep`,
+    PERF.md): 1x was fastest where the sub-runs fit the card in about one
+    wave (2^12 and 2^15 points) and tied at 2^20, where a balanced window's
+    buckets, split about half the time at 1x, cost a combine level."""
+    return max(RUN_MIN, factor * -(-n // buckets))
+
+
+@dataclass(frozen=True)
+class Runs:
+    """The bucket runs of one MSM cut into M sub-runs (`split_runs`),
+    longest first: sub-run i is the `length[i]` positions from `pos[i]` of
+    the flattened (W * n) sort order, a piece of bucket `bucket[i]` (flat
+    index w * B + b). The combine's plan: `single` lists the sub-runs that
+    are a whole bucket; `multi` those of the buckets cut in more than one,
+    bucket by bucket in run order, with `rank` each one's place in its
+    bucket and `size` that bucket's count of sub-runs."""
+
+    pos: torch.Tensor      # (M,) int32
+    length: torch.Tensor   # (M,) int32, 1 .. L, non-increasing
+    bucket: torch.Tensor   # (M,) int64
+    single: torch.Tensor   # int64 indices into the M sub-runs
+    multi: torch.Tensor    # (K,) int64 indices into the M sub-runs
+    rank: torch.Tensor     # (K,) int64
+    size: torch.Tensor     # (K,) int64
+    windows: int
+    buckets: int
+    run_length: int        # L
+    longest: int           # the longest sub-run (the bucket loop's trip count)
+    max_split: int         # the most sub-runs of one bucket
+
+
+def split_runs(start, count, n: int, run_length: int | None = None) -> Runs:
+    """Cut every run order[w, start : start + count] (the (W, B) arrays of
+    `bucket_inputs`, n points a window) into sub-runs of at most L
+    consecutive positions, L = `default_run_length(n, B)` unless given.
+    The one split of both routes and of both plain twins; the counts are
+    read to the host once, to size the arrays."""
     windows, buckets = start.shape
-    n = order.shape[-1]
-    ks = (k0 + torch.arange(fuse, device=rows.device))[:, None, None]
-    pos = (start[None] + ks).clamp(max=n - 1).to(torch.int64)
-    idx = torch.gather(order.to(torch.int64).expand(fuse, windows, n), 2, pos)
-    q = cuda_ops.rows_to_affine(rows[idx.reshape(-1)], (fuse, windows, buckets))
-    return q, ks >= count[None]
+    limit = default_run_length(n, buckets) if run_length is None else run_length
+    if limit < 1:
+        raise ValueError(f"run length must be >= 1, got {limit}")
+    dev = start.device
+    cnt = count.reshape(-1).to(torch.int64)
+    m = (cnt + limit - 1) // limit  # sub-runs of each bucket
+    if cnt.numel():
+        total, longest, max_split = torch.stack([m.sum(), cnt.max(), m.max()]).tolist()
+    else:
+        total = longest = max_split = 0
+    bucket = torch.repeat_interleave(torch.arange(cnt.numel(), device=dev), m,
+                                     output_size=total)
+    j = torch.arange(total, device=dev) - (torch.cumsum(m, 0) - m)[bucket]  # place in bucket
+    base = start.to(torch.int64) + n * torch.arange(windows, device=dev)[:, None]
+    pos = base.reshape(-1)[bucket] + j * limit
+    length = torch.clamp(cnt[bucket] - j * limit, max=limit)
+    # longest first: full sub-runs, then the tails; stable, so a bucket's
+    # full sub-runs keep their run order
+    perm = torch.argsort(length, descending=True, stable=True)
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(total, device=dev)
+    cut = m[bucket] > 1
+    multi = cut.nonzero().squeeze(1)  # bucket-major, j ascending
+    return Runs(pos=pos[perm].to(torch.int32), length=length[perm].to(torch.int32),
+                bucket=bucket[perm], single=inv[(~cut).nonzero().squeeze(1)],
+                multi=inv[multi], rank=j[multi], size=m[bucket[multi]],
+                windows=windows, buckets=buckets, run_length=limit,
+                longest=min(limit, longest), max_split=max_split)
 
 
-def _bucket_loop(curve, rows, order, start, count):
+def combine_runs(curve, partial, runs: Runs):
+    """Bucket sums 3 x (lead, W, B), infinity where a bucket is empty, from
+    the sub-runs' partial sums 3 x (lead, M). A bucket of one sub-run keeps
+    its partial; the others are summed by one segmented pairwise tree:
+    each level adds partials 2i and 2i + 1 of every bucket with one
+    `curve.add` (K2, P + P and P + (-P) included), an odd last one carried,
+    ceil(log2 runs.max_split) levels."""
+    lead = partial[0].shape[:-1]
+    dev = partial[0].device
+    out = curve.infinity((runs.windows * runs.buckets,), dev)
+    out = tuple(o.index_copy(-1, runs.bucket[runs.single], p[..., runs.single])
+                for o, p in zip(out, partial))
+    cur = tuple(p[..., runs.multi] for p in partial)
+    bucket, rank, size = runs.bucket[runs.multi], runs.rank, runs.size
+    for _ in range((runs.max_split - 1).bit_length()):
+        even = rank % 2 == 0
+        keep = even.nonzero().squeeze(1)
+        pair = (even & (rank + 1 < size)).nonzero().squeeze(1)
+        sums = curve.add(tuple(t[..., pair] for t in cur), tuple(t[..., pair + 1] for t in cur))
+        slot = (torch.cumsum(even, 0) - 1)[pair]
+        cur = tuple(t[..., keep].index_copy(-1, slot, s_) for t, s_ in zip(cur, sums))
+        bucket, rank, size = bucket[keep], rank[keep] // 2, (size[keep] + 1) // 2
+    out = tuple(o.index_copy(-1, bucket, t) for o, t in zip(out, cur))
+    return tuple(o.reshape(lead + (runs.windows, runs.buckets)) for o in out)
+
+
+def loop_chunk(rows, order, runs: Runs, k0: int, fuse: int):
+    """Steps k0 .. k0 + fuse - 1 of the bucket loop as `madd_multi` takes
+    them: the affine points (x, y) of shape (12[, 2], S, M), point s of
+    lane i being the (k0 + s)-th of sub-run i (a clamped, masked read past
+    its end), and the (S, M) skip mask k0 + s >= length."""
+    flat = order.reshape(-1).to(torch.int64)
+    ks = (k0 + torch.arange(fuse, device=rows.device))[:, None]
+    idx = flat[(runs.pos[None].to(torch.int64) + ks).clamp(max=flat.numel() - 1)]
+    q = cuda_ops.rows_to_affine(rows[idx.reshape(-1)], tuple(idx.shape))
+    return q, ks >= runs.length[None]
+
+
+def _bucket_loop(curve, rows, order, start, count, run_length: int | None = None):
     """The v1 bucket loop on K7: Jacobian bucket sums, 3 x (12[, 2], W, B),
-    from the arrays of `bucket_inputs`. Step k folds the k-th point of every
-    (window, bucket) run into its accumulator, masked where k >= count;
-    `msm_fuse_steps` steps' points are gathered at once and added by one
-    `madd_multi` launch. The trip count is the fullest bucket's (one read
-    of the device)."""
+    from the arrays of `bucket_inputs`, over the lanes of `split_runs`.
+    Step k folds the k-th point of every sub-run into its accumulator,
+    masked where k >= its length; `msm_fuse_steps` steps' points are
+    gathered at once and added by one `madd_multi` launch, so the longest
+    sub-run (<= L) sets the launch count. `combine_runs` finishes."""
+    runs = split_runs(start, count, order.shape[-1], run_length)
     fuse = get_config().msm_fuse_steps
-    acc = curve.infinity(tuple(start.shape), rows.device)
-    steps = int(count.max()) if count.numel() else 0
-    for k0 in range(0, steps, fuse):
-        q, skip = loop_chunk(rows, order, start, count, k0, fuse)
+    acc = curve.infinity((runs.pos.numel(),), rows.device)
+    for k0 in range(0, runs.longest, fuse):
+        q, skip = loop_chunk(rows, order, runs, k0, fuse)
         acc = curve.madd_multi(acc, q, skip)
-    return acc
+    return combine_runs(curve, acc, runs)
 
 
 def _msm_runs(curve, xa, ya, inf, scalars_std, c: int):

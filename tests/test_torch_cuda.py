@@ -1,6 +1,7 @@
 """Kernels K1-K9 (G1 and G2) on the card against their plain PyTorch twins,
-exact; the matmul-DFT NTT and device setup on the card; the default device;
-and no fallback when the kernel build fails.
+exact, K3 and the bucket loop also on skewed digits; the matmul-DFT NTT and
+device setup on the card; the default device; and no fallback when the
+kernel build fails.
 
 Needs a CUDA device and nvcc; skips elsewhere. This file imports no JAX, so
 it runs where JAX is absent:
@@ -16,9 +17,11 @@ import torch
 
 from kzg_tpu_torch import config, kernels, native
 from kzg_tpu_torch.constants import P, R
-from kzg_tpu_torch.curve import G1, G2, cuda_ops, g2_from_device, g2_generator_device
+from kzg_tpu_torch.curve import (
+    G1, G2, cuda_ops, g1_from_device, g2_from_device, g2_generator_device,
+)
 from kzg_tpu_torch.fields import FP, FR, cuda_field
-from kzg_tpu_torch.msm import msm_g2, pippenger
+from kzg_tpu_torch.msm import msm_g1, msm_g2, pippenger
 from kzg_tpu_torch.ntt import Domain, mxu
 
 pytestmark = pytest.mark.cuda
@@ -235,6 +238,41 @@ def test_g2_pippenger_kernels_and_msm(dev):
         assert g2_from_device(tuple(t[..., None] for t in got))[0] == native.g2_msm(host, scal)
         assert after[kernel] > before[kernel]
         assert after["g2_horner_join"] == before["g2_horner_join"] + 1
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_k3_and_bucket_loop_on_skewed_digits(dev, group):
+    """All-equal scalars (every point of a window in one bucket) and
+    [R - 1] + [1] * (n - 1): no sub-run longer than L; K3 on the sub-runs
+    against its twin word for word; the K3 route against its twin and
+    against the bucket loop on K7 and on the twins; both MSM routes against
+    the native engine."""
+    n = 600
+    if group == "g1":
+        pts = _points(dev, n, 41)[0]
+        curve, plain, msm_fn = G1, cuda_ops.PLAIN, msm_g1
+        from_dev, native_msm = g1_from_device, native.g1_msm
+    else:
+        pts = _g2_points(dev, n, 41)
+        curve, plain, msm_fn = G2, cuda_ops.PLAIN2, msm_g2
+        from_dev, native_msm = g2_from_device, native.g2_msm
+    x, y, inf = plain.to_affine(pts)
+    host = from_dev((x, y, inf))
+    for scal in ([_ints(43, R, 4)[3]] * n, [R - 1] + [1] * (n - 1)):
+        std = torch.from_numpy(FR.from_ints(scal)).to(dev)
+        for c in (5, 10):
+            inputs = pippenger.bucket_inputs(x, y, inf, std, c)
+            runs = pippenger.split_runs(inputs[2], inputs[3], n)
+            assert runs.longest <= runs.run_length < int(inputs[3].max())
+            assert _equal(cuda_ops.bucket_runs(inputs[0], inputs[1], runs.pos, runs.length),
+                          cuda_ops.bucket_runs_plain(inputs[0], inputs[1], runs.pos, runs.length))
+            k3 = cuda_ops.bucket_accumulate(*inputs)
+            assert _equal(k3, cuda_ops.bucket_accumulate_plain(*inputs))
+            assert _equal(pippenger._bucket_loop(curve, *inputs), k3)
+            assert _equal(pippenger._bucket_loop(plain, *inputs), k3)
+        for window in (None, 10):  # the bucket loop (c = 4), K3
+            got = msm_fn((x, y, inf), torch.from_numpy(FR.encode(scal)).to(dev), window)
+            assert from_dev(tuple(t[..., None] for t in got))[0] == native_msm(host, scal)
 
 
 @pytest.mark.parametrize("field,mod", [(FR, R), (FP, P)], ids=["Fr", "Fp"])
