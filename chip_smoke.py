@@ -18,16 +18,24 @@ non-zero before the result line:
                 mask, same and opposite steps planted) and the bucket loop's
                 launches, K3 on the sub-runs of one 2^15 MSM at c = 10 and
                 of 2^15 all-equal scalars (one bucket a window; that MSM
-                against the native engine's), K7 at the 2^15 witness's shape
-                (c = 9: its launches, the loop equal to the K3 route), K4
-                the window join at W = 37, c = 7 and at W = 26, c = 10,
+                against the native engine's, joined by one K4 launch), K7 at
+                the 2^15 witness's shape (c = 9: its launches, the loop equal
+                to the K3 route), K4 the window join at W = 37, c = 7 and at
+                W = 26, c = 10 on real window sums, timed also at the 2^20
+                paths' W = 18, c = 15 and W = 19, c = 14, and held to its
+                twin at the join's edge cases (`bench.horner.CASES`, G1 and
+                G2: empty top windows, all infinity, P == Q, P == -Q, W = 1,
+                c = 1, c = 16),
                 K5 every stage of a 2^20 NTT in the Pease layout and in the
                 four-step layout, of a 2^12 Pease transform, and the whole
                 2^20 NTT against the domain's plain twin; over Fp2: add/dbl,
                 K6 and K7 as over Fp, K3 / K4 on a dense G2 MSM's buckets at
                 2^12 (c = 7) and at 2^15 (c = 10), every window, and the
                 native engine's MSM for the whole; K8 mul_chain for Fr and Fp at
-                2^15 lanes with k = 1, 2, 65 (timed at the probe's 2^19 lanes);
+                2^15 lanes with k = 1, 2, 65, one thread an element and in its
+                cooperative mode (16 lanes a product, as K4 runs it), timed at
+                the probe's 2^19 lanes, and at one element for the latency of
+                one product of each mode, printed on a line of its own;
                 K9 mxu_reduce on the digit sums of a real 128-point DFT product
                 at 2^15 lanes and on the largest legal digit sums, timed on
                 the (64, 2^20) digit array of a 2^20 NTT's first pass, with
@@ -56,7 +64,7 @@ non-zero before the result line:
       (the Lagrange build timed group by group, before the next reset);
  11. G2 MSM   - msm_g2 (G2 Pippenger) at 2^12 (the bucket loop on K7) and
                 2^15 points (K3) with random scalars, equal to the native
-                engine's g2_msm;
+                engine's g2_msm, one K4 launch a call;
  12. golden   - the eval_2e7 vector: Lagrange SRS from the secret, commit
                 and witness bytes, verify_eval accepts;
  13. eval     - the evaluation-form path at d = 2^12 (one EIP-4844 blob):
@@ -99,7 +107,9 @@ With --profile, the evaluation-form path is then profiled phase by phase
 (wall, launches, device time by kernel, idle share) and the table written
 to JSON (default build/profile_eval.json).
 The last lines are the kernel report (launches summed over the four
-counted runs), the nvidia-smi line, and {"ok": true, "device": {...}}.
+counted runs; K4's rows also carry `chain_ms`, its critical path in
+dependent products at W = 26, c = 10 times the 16-lane Fp product's
+latency), the nvidia-smi line, and {"ok": true, "device": {...}}.
 
 Bounds in the kernel report. `bound_ms` is the larger of two times: the
 bytes the function must move (each input read once, each output written
@@ -342,7 +352,9 @@ def main(argv=None) -> int:
         return 1
 
     from kzg_tpu_torch import kernels, native
+    from kzg_tpu_torch.bench import horner as hbench
     from kzg_tpu_torch.bench import mul_peak, peaks
+    from kzg_tpu_torch.curve import horner_schedule
     from kzg_tpu_torch.config import configure, get_config
     from kzg_tpu_torch.constants import P, R
     from kzg_tpu_torch.curve import G1, G2, cuda_ops, g1_from_device, g2_from_device
@@ -672,9 +684,12 @@ def main(argv=None) -> int:
                                              bound=k3["bound"])
         report.update(k3_route_2e15_ms=k3["route_ms"], k3_equal_scalars_2e15_ms=k3_eq["ms"],
                       k3_equal_scalars_route_2e15_ms=k3_eq["route_ms"])
+        before = kernels.launch_counts()["g1_horner_join"]
         check(g1_from_device(tuple(t[..., None] for t in msm_g1(params.gs, scal_eq, C_MAIN)))[0]
               == native.g1_msm(pts_host, [eq_int] * N_MAIN),
               "2^15 MSM of all-equal scalars (c = 10, K3) equals native.g1_msm")
+        check(kernels.launch_counts()["g1_horner_join"] == before + 1,
+              "the MSM joined its windows in one K4 launch")
         s_all = pippenger.weighted_bucket_sum(G1, got)
         got = cuda_ops.horner_join(s_all, C_MAIN)
         torch.cuda.synchronize()
@@ -694,6 +709,29 @@ def main(argv=None) -> int:
         want_pt = native.g1_msm(pts_host, scal_ints)
         check(g1_from_device(tuple(t[..., None] for t in got))[0] == want_pt,
               "K3 + K2 + K4 MSM equals the native engine's")
+        # K4 at the 2^20 commit's and witness's window shapes (random
+        # coordinates: the same arithmetic and branches as points), and at
+        # the join's edge cases against the twin
+        gen4 = torch.Generator(device=dev).manual_seed(SEED + 4)
+        k4_shape_ms = {}
+        for windows, c in ((18, 15), (19, 14)):
+            s_rand = hbench.random_sums("g1", windows, gen4)
+            k4_shape_ms[(windows, c)] = cuda_ms(lambda: cuda_ops.horner_join(s_rand, c), 5)
+            report[f"g1_horner_join_w{windows}_c{c}_ms"] = k4_shape_ms[(windows, c)]
+            log(f"  K4 W={windows}, c={c} (the 2^20 {'commit' if c == 15 else 'witness'}'s "
+                f"windows, every doubling live): kernel {k4_shape_ms[(windows, c)]:.4f} ms "
+                f"[{card}]")
+        k4_edge_err = {"g1": 0, "g2": 0}
+        for group in ("g1", "g2"):
+            for case in hbench.CASES:
+                s_edge, c = hbench.edge_case_sums(group, case, dev)
+                err = max_abs_diff(cuda_ops.horner_join(s_edge, c),
+                                   cuda_ops.horner_join_plain(s_edge, c))
+                k4_edge_err[group] = max(k4_edge_err[group], err)
+                check(err == 0, f"K4 {group} edge case {case} (W={s_edge[0].shape[-1]}, c={c}) "
+                      "equals plain")
+        kinfo["g1_horner_join"]["max_abs_err"] = max(kinfo["g1_horner_join"]["max_abs_err"],
+                                                     k4_edge_err["g1"])
 
         # K7 at the shape the 2^15 witness gives it: 2^15 - 1 points, c = 9
         nw = N_MAIN - 1
@@ -876,6 +914,8 @@ def main(argv=None) -> int:
         for i, kname in enumerate(("g2_bucket_accumulate", "g2_horner_join")):
             kinfo[kname].update(max_abs_err=max(errs[i], errs12[i]), ms=ms[i],
                                 plain_ms=plain[i], bound=bounds[i])
+        kinfo["g2_horner_join"]["max_abs_err"] = max(kinfo["g2_horner_join"]["max_abs_err"],
+                                                     k4_edge_err["g2"])
         # K8: k dependent multiplies, against the plain chain at 2^15 lanes;
         # timed at the probe's shape, 2^19 lanes and k = 65, over Fp
         gen8 = torch.Generator(device=dev).manual_seed(SEED + 8)
@@ -884,10 +924,24 @@ def main(argv=None) -> int:
             a = peaks.random_elements(F, N_MAIN, gen8)
             b = peaks.random_elements(F, N_MAIN, gen8)
             for k in (1, 2, 65):
-                err = max_abs_diff(cuda_field.mul_chain(F, k, a, b),
-                                   cuda_field.mul_chain_plain(F, k, a, b))
+                want = cuda_field.mul_chain_plain(F, k, a, b)
+                err = max(max_abs_diff(cuda_field.mul_chain(F, k, a, b), want),
+                          max_abs_diff(cuda_field.mul_chain(F, k, a, b, cooperative=True), want))
                 k8_err = max(k8_err, err)
-                check(err == 0, f"K8 mul_chain {F.name} k={k} 2^15 equals plain")
+                check(err == 0, f"K8 mul_chain {F.name} k={k} 2^15, one thread and 16 lanes "
+                      "an element, equals plain")
+        # one product's latency: K8 at one element, k = 65 less k = 1
+        latency_us = {}
+        for F in (FR, FP):
+            for coop in (False, True):
+                pk = mul_peak(F, 1, device=dev, cooperative=coop,
+                              generator=torch.Generator(device=dev).manual_seed(SEED + 9))
+                latency_us[(F.name, coop)] = 1e6 / pk.marginal_rate
+        report.update({f"{f.lower()}_mul_latency_{'coop' if coop else 'thread'}_us": v
+                       for (f, coop), v in latency_us.items()})
+        log("mul latency at one element (K8, k = 65 less k = 1): " + "; ".join(
+            f"{f} {'16 lanes' if coop else 'one thread'} {v:.4f} us"
+            for (f, coop), v in latency_us.items()) + f" [{card}]")
         lanes8 = 1 << 19
         a = peaks.random_elements(FP, lanes8, gen8)
         b = peaks.random_elements(FP, lanes8, gen8)
@@ -1139,6 +1193,7 @@ def main(argv=None) -> int:
             scal = torch.from_numpy(FR.encode(ints)).to(dev)
             pts = tuple(t[..., :m].contiguous() for t in params.hs)
             times = []
+            before = kernels.launch_counts()["g2_horner_join"]
             for _ in range(3):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -1146,6 +1201,8 @@ def main(argv=None) -> int:
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
             g2_s = sorted(times)[1]
+            check(kernels.launch_counts()["g2_horner_join"] == before + 3,
+                  f"msm_g2 2^{exp} joined its windows in one K4 launch a call")
             t0 = time.perf_counter()
             want_pt = native.g2_msm(hs_host[:m], ints)
             native_s = time.perf_counter() - t0
@@ -1461,6 +1518,16 @@ def main(argv=None) -> int:
                 ("msm_g2 dense 2^15", lambda: msm_g2(params.hs, dense15)),
             ], card, args.profile)
 
+    # K4's critical path in dependent products at the timed shape (26
+    # windows of c = 10) times one 16-lane Fp product's latency
+    for kname, ncomp in (("g1_horner_join", 1), ("g2_horner_join", 2)):
+        prog = horner_schedule.expand(ncomp)
+        products = (26 * C_MAIN * horner_schedule.critical_products(prog, "dbl")
+                    + 26 * horner_schedule.critical_products(prog, "add"))
+        kinfo[kname]["chain_ms"] = products * latency_us[("Fp", True)] * 1e-3
+        log(f"  {kname}: critical path {products} dependent products at W = 26, c = {C_MAIN}, "
+            f"chain {kinfo[kname]['chain_ms']:.4f} ms against the kernel's "
+            f"{kinfo[kname]['ms']:.4f} ms [{card}]")
     kreport = {"kernels": [
         {
             "name": k.name,
@@ -1474,6 +1541,7 @@ def main(argv=None) -> int:
             "bound_ms": kinfo[k.name]["bound"][0],
             "bound_by": kinfo[k.name]["bound"][1],
             "library_ms": None,
+            **({"chain_ms": kinfo[k.name]["chain_ms"]} if "chain_ms" in kinfo[k.name] else {}),
         }
         for k in kernels.REGISTRY.values()
     ]}

@@ -46,13 +46,20 @@ def random_elements(field, lanes: int, generator: torch.Generator) -> torch.Tens
     return torch.cat([low, top]).to(torch.int32)
 
 
+HOLD_CYCLES = 20_000_000  # ~10 ms of the card's clock: longer than the host takes to enqueue
+
+
 def _event_ms(fn, variants, iters: int) -> float:
     """Mean milliseconds a call of fn over the operand variants in turn,
-    after one warm-up call, by CUDA events."""
+    after one warm-up call, by CUDA events. A spin kernel holds the stream
+    while the host enqueues the events and the calls, so the card runs them
+    back to back and the events read device time even where one call is
+    shorter than the host's time to launch it (a chain at one element)."""
     fn(variants[0])
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for i in range(iters):
         fn(variants[i % len(variants)])
@@ -62,11 +69,14 @@ def _event_ms(fn, variants, iters: int) -> float:
 
 
 def mul_peak(field, lanes: int, device=None, generator: torch.Generator | None = None,
-             iters: int = 20) -> MulPeak:
+             iters: int = 20, cooperative: bool = False) -> MulPeak:
     """Measure `field`'s multiply rate on the card with K8 at `lanes`
     elements (the bench uses 2^19). Operands come from `generator` (default:
-    a fresh one on the device, seed 0). Needs a CUDA device: a timing of the
-    plain version on the CPU would not be a rate of the card."""
+    a fresh one on the device, seed 0). At `lanes=1` the marginal time of a
+    product, 1 / marginal_rate, is its latency: that of the one-thread CIOS,
+    or with `cooperative` that of the 16-lane product kernel K4 chains.
+    Needs a CUDA device: a timing of the plain version on the CPU would not
+    be a rate of the card."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError(f"mul_peak times kernel K8 on a card; got device {dev}")
@@ -75,8 +85,10 @@ def mul_peak(field, lanes: int, device=None, generator: torch.Generator | None =
     a = random_elements(field, lanes, generator)
     b = random_elements(field, lanes, generator)
     variants = [torch.roll(a, i, dims=-1) for i in range(4)]
-    t1 = _event_ms(lambda v: cuda_field.mul_chain(field, K_SHORT, v, b), variants, iters)
-    t2 = _event_ms(lambda v: cuda_field.mul_chain(field, K_LONG, v, b), variants, iters)
+    t1 = _event_ms(lambda v: cuda_field.mul_chain(field, K_SHORT, v, b, cooperative),
+                   variants, iters)
+    t2 = _event_ms(lambda v: cuda_field.mul_chain(field, K_LONG, v, b, cooperative),
+                   variants, iters)
     return MulPeak(
         field=field.name, lanes=lanes,
         rate=lanes * K_LONG / (t2 * 1e-3),

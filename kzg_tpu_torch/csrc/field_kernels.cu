@@ -20,12 +20,17 @@
 // argument and the loop stays rolled (`#pragma unroll 1`), so the compiler
 // can neither hoist nor shorten the chain (acc depends on acc). Bound:
 // k (2 N^2 + N) multiply-adds an element; three rows of bytes whatever k.
+// Its cooperative mode (`kzg_field_mul_chain_coop`) runs the same chain
+// with each product spread over 16 lanes of a warp (coop.cuh), one element
+// a warp: the product K4 chains, so one element's marginal time is that
+// product's latency beside the one-thread CIOS's.
 //
 // C interface (ctypes): each entry launches on the caller's stream,
 // allocates nothing, and returns cudaGetLastError() of the launch.
 
 #include <cuda_runtime.h>
 
+#include "coop.cuh"
 #include "field.cuh"
 
 using namespace kzg;
@@ -73,6 +78,36 @@ mul_chain_kernel(uint32_t* __restrict__ out, const uint32_t* __restrict__ a,
 #pragma unroll 1
   for (int s = 0; s < k; s++) acc = fe_mul<F>(acc, y);
   fe_store<F>(out, n, i, acc);
+}
+
+// one element a warp, its lanes 0-15 on the words (coop.cuh); acc and b
+// in shared memory, acc written to the other buffer each step
+constexpr int kCoopWarps = 4;
+
+template <class F>
+__global__ void __launch_bounds__(32 * kCoopWarps)
+mul_chain_coop_kernel(uint32_t* __restrict__ out, const uint32_t* __restrict__ a,
+                      const uint32_t* __restrict__ b, int k, long long n) {
+  __shared__ uint32_t sm[kCoopWarps][3][kCoopLanes];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long i = (long long)blockIdx.x * kCoopWarps + warp;
+  if (i >= n || lane >= kCoopLanes) return;
+  const CoopLane<F> L(lane);
+  uint32_t* acc = sm[warp][0];
+  uint32_t* nxt = sm[warp][1];
+  uint32_t* y = sm[warp][2];
+  acc[lane] = lane < F::N ? a[lane * n + i] : 0u;
+  y[lane] = lane < F::N ? b[lane * n + i] : 0u;
+  __syncwarp(kCoopMask);
+#pragma unroll 1
+  for (int s = 0; s < k; s++) {
+    nxt[lane] = coop_mul<F>(L, acc, y);
+    __syncwarp(kCoopMask);
+    uint32_t* t = acc;
+    acc = nxt;
+    nxt = t;
+  }
+  if (lane < F::N) out[lane * n + i] = acc[lane];
 }
 
 inline unsigned blocks_for(long long n) {
@@ -144,6 +179,25 @@ int kzg_field_mul_chain(int field, void* out, const void* a, const void* b, int 
     mul_chain_kernel<Fr><<<blocks_for(n), kThreads, 0, s>>>(o, x, y, k, n);
   } else if (field == 1) {
     mul_chain_kernel<Fp><<<blocks_for(n), kThreads, 0, s>>>(o, x, y, k, n);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// the same, each product over 16 lanes of a warp, one element a warp
+int kzg_field_mul_chain_coop(int field, void* out, const void* a, const void* b, int k,
+                             long long n, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto o = static_cast<uint32_t*>(out);
+  auto x = static_cast<const uint32_t*>(a);
+  auto y = static_cast<const uint32_t*>(b);
+  if (n <= 0 || k < 0) return (int)cudaErrorInvalidValue;
+  const unsigned g = (unsigned)((n + kCoopWarps - 1) / kCoopWarps);
+  if (field == 0) {
+    mul_chain_coop_kernel<Fr><<<g, 32 * kCoopWarps, 0, s>>>(o, x, y, k, n);
+  } else if (field == 1) {
+    mul_chain_coop_kernel<Fp><<<g, 32 * kCoopWarps, 0, s>>>(o, x, y, k, n);
   } else {
     return (int)cudaErrorInvalidValue;
   }

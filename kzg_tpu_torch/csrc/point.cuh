@@ -13,9 +13,10 @@
 // This header holds the device functions, the kernel templates and their
 // launchers; the C entry points that instantiate them are split over
 // point_kernels.cu (G1) and, for G2, point_g2_kernels.cu (add / dbl),
-// madd_g2_kernels.cu, madd_multi_g2_kernels.cu, msm_g2_kernels.cu
-// (bucket_accumulate) and horner_g2_kernels.cu, one nvcc process each, so
-// the long Fp2 compilations run side by side.
+// madd_g2_kernels.cu, madd_multi_g2_kernels.cu and msm_g2_kernels.cu
+// (bucket_accumulate), one nvcc process each, so the long Fp2 compilations
+// run side by side. K4, the window join, has a design of its own
+// (horner.cuh).
 //
 // Layouts. A G1 coordinate batch is (12, n) words, a G2 one (12, 2, n), c0
 // then c1 on axis 1. An affine point ROW (the bucket kernel's input) is
@@ -321,25 +322,6 @@ bucket_accumulate_kernel(uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
   store_point<E>(ox, oy, oz, m, t, acc);
 }
 
-// s*: one coordinate batch of W window sums each; out: one point. MSB
-// window first: c doublings (infinity kept fixed) then one full add.
-template <class E>
-__global__ void horner_join_kernel(uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
-                                   uint32_t* __restrict__ oz,
-                                   const uint32_t* __restrict__ sx,
-                                   const uint32_t* __restrict__ sy,
-                                   const uint32_t* __restrict__ sz, int windows, int c) {
-  if (blockIdx.x != 0 || threadIdx.x != 0) return;
-  Jac<E> acc = infinity<E>();
-  for (int i = windows - 1; i >= 0; i--) {
-    for (int k = 0; k < c; k++) {
-      if (!is_zero(acc.z)) acc = dbl(acc);  // keep infinity fixed
-    }
-    acc = add_pts(acc, load_point<E>(sx, sy, sz, windows, i));
-  }
-  store_point<E>(ox, oy, oz, 1, 0, acc);
-}
-
 inline unsigned blocks_for(long long n) {
   return (unsigned)((n + kPointThreads - 1) / kPointThreads);
 }
@@ -404,17 +386,6 @@ int launch_bucket_accumulate(void* ox, void* oy, void* oz, const void* rows,
       static_cast<uint32_t*>(ox), static_cast<uint32_t*>(oy), static_cast<uint32_t*>(oz),
       static_cast<const uint32_t*>(rows), static_cast<const int32_t*>(order),
       static_cast<const int32_t*>(pos), static_cast<const int32_t*>(len), m);
-  return (int)cudaGetLastError();
-}
-
-template <class E>
-int launch_horner_join(void* ox, void* oy, void* oz, const void* sx, const void* sy,
-                       const void* sz, int windows, int c, void* stream) {
-  if (windows <= 0 || c <= 0) return (int)cudaErrorInvalidValue;
-  horner_join_kernel<E><<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint32_t*>(ox), static_cast<uint32_t*>(oy), static_cast<uint32_t*>(oz),
-      static_cast<const uint32_t*>(sx), static_cast<const uint32_t*>(sy),
-      static_cast<const uint32_t*>(sz), windows, c);
   return (int)cudaGetLastError();
 }
 

@@ -42,14 +42,15 @@
 //     3), 92 B spilled, three blocks an SM (point.cuh, K3MinBlocks).
 // K4  kzg_g1_horner_join          replaces _PointKernels.horner_join
 //     (pallas_ops.py:590). sum_w 2^(c w) S_w, MSB window first: c
-//     doublings (infinity kept fixed) then one add per window. A
-//     sequential chain of W (c + 1) point ops; one thread holds it in
-//     registers (the TPU computed the same value in all 1024 lanes).
-//     Bound by the latency of dependent Fp multiplications.
+//     doublings (infinity kept fixed) then one add per window. Bound by
+//     the latency of the chain; one block of four warps runs it, the
+//     products of each level side by side and each product over 16
+//     lanes (horner.cuh, coop.cuh).
 //
 // C interface (ctypes): each entry launches on the caller's stream,
 // allocates nothing, and returns cudaGetLastError() of the launch.
 
+#include "horner.cuh"
 #include "point.cuh"
 
 extern "C" {
@@ -88,7 +89,7 @@ int kzg_g1_bucket_accumulate(void* ox, void* oy, void* oz, const void* rows,
 
 int kzg_g1_horner_join(void* ox, void* oy, void* oz, const void* sx, const void* sy,
                        const void* sz, int windows, int c, void* stream) {
-  return launch_horner_join<FpE>(ox, oy, oz, sx, sy, sz, windows, c, stream);
+  return launch_horner_join<HornerProgG1>(ox, oy, oz, sx, sy, sz, windows, c, stream);
 }
 
 }  // extern "C"

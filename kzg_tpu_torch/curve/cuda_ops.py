@@ -50,15 +50,17 @@ spilled; G2 255, 580 B spilled (`csrc/point.cuh`, K3MinBlocks).
 
 K4 `horner_join` replaces `_PointKernels.horner_join` (`pallas_ops.py:590`):
 sum_w 2^(c*w) * S_w, MSB window first, c doublings (infinity kept fixed)
-then one full add per window. The chain is sequential by nature; one
-thread runs all W*(c+1) point ops with everything in registers (the TPU
-version spent one 1024-lane tile per step computing the same value in
-every lane). Bound: latency of the dependent Fp multiplications.
+then one full add per window. The chain is sequential by nature and bound
+by its latency. One block runs it (`csrc/horner.cuh`): its warps hold the
+point in shared memory and run each level of the doubling's and the
+addition's independent products side by side, from the program that
+`curve.horner_schedule` generates, and each product, add and sub is
+spread over 16 lanes, a word a lane (`csrc/coop.cuh`).
 
 K3 / K4 over Fp2 (counted as `g2_bucket_accumulate`, `g2_horner_join`) are
 the same templates instantiated for G2 (`pallas_ops.py:388,590` with ncomp = 2):
 48-word rows, 3 x (12, 2, W, B) bucket sums; an empty bucket is infinity
-and K4 keeps infinity fixed through its doublings. The 72-word accumulator
+and K4 keeps infinity fixed through its doublings. K3's 72-word accumulator
 and 48-word point spill; accepted for a first version.
 
 K6 `madd` / `g2_madd` replace `_PointKernels.madd` (`pallas_ops.py:270`,

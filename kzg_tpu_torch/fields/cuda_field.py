@@ -268,10 +268,13 @@ def mul_chain_plain(field, k: int, a: torch.Tensor, b: torch.Tensor) -> torch.Te
     return pack16(acc).reshape(a.shape)
 
 
-def mul_chain(field, k: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def mul_chain(field, k: int, a: torch.Tensor, b: torch.Tensor,
+              cooperative: bool = False) -> torch.Tensor:
     """K8: a * b^k * R^-k in one launch (k >= 0 dependent Montgomery
     products). The plain version for CPU tensors, the CUDA kernel for CUDA
-    tensors."""
+    tensors: one thread an element, or with `cooperative` one warp an
+    element, each product spread over 16 lanes as kernel K4 runs it
+    (`csrc/coop.cuh`). Both give the same words."""
     if k < 0:
         raise ValueError("chain length must be >= 0")
     a, b = torch.broadcast_tensors(a, b)
@@ -285,10 +288,10 @@ def mul_chain(field, k: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     n = a.numel() // field.W
     if n == 0:
         return out
-    rc = kernels.library().kzg_field_mul_chain(
-        field.kernel_id, out.data_ptr(), a.data_ptr(), b.data_ptr(), k, n,
-        kernels.stream_handle(a.device),
-    )
+    lib = kernels.library()
+    entry = lib.kzg_field_mul_chain_coop if cooperative else lib.kzg_field_mul_chain
+    rc = entry(field.kernel_id, out.data_ptr(), a.data_ptr(), b.data_ptr(), k, n,
+               kernels.stream_handle(a.device))
     kernels.check_status(rc, f"{field.name} mul_chain k={k}")
     _K8.launches += 1
     return out

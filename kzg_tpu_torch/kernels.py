@@ -30,7 +30,7 @@ BUILD_ROOT = _PKG.parent / "build" / "kzg_tpu_torch"
 SOURCES = ("field_kernels.cu", "point_kernels.cu", "ntt_kernels.cu",
            "point_g2_kernels.cu", "madd_g2_kernels.cu", "madd_multi_g2_kernels.cu",
            "msm_g2_kernels.cu", "horner_g2_kernels.cu", "mxu_kernels.cu")
-HEADERS = ("field.cuh", "point.cuh")
+HEADERS = ("field.cuh", "point.cuh", "coop.cuh", "horner.cuh", "horner_schedule.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -198,8 +198,9 @@ _SIGNATURES = {
     # (ox, oy, oz, ax, ay, az, qx, qy, skip bytes, neg bytes, steps, n, stream)
     "kzg_g1_madd_multi": (_P,) * 10 + (_I, _N, _P),
     "kzg_g2_madd_multi": (_P,) * 10 + (_I, _N, _P),
-    # (field, out, a, b, k, n, stream)
+    # (field, out, a, b, k, n, stream); the coop entry spreads each product over 16 lanes
     "kzg_field_mul_chain": (_I, _P, _P, _P, _I, _N, _P),
+    "kzg_field_mul_chain_coop": (_I, _P, _P, _P, _I, _N, _P),
     # (out (8, n) words, digit sums (64, n) int32, n, stream)
     "kzg_mxu_reduce": (_P, _P, _N, _P),
 }

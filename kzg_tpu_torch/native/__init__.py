@@ -1,9 +1,15 @@
 """Copy of `kzg_tpu/native/__init__.py`. The `kzg_tpu` package imports JAX in
 its `__init__`, so the port, which runs where JAX is absent, cannot import
 even the JAX-free modules of that package. It builds and loads the same
-repo-root `native/kzg_native.cc` (through `make -C native`). One change:
-a failed build keeps make's output, so `_require()` (and with it the port's
-host setup) fails loudly with the compiler's message.
+repo-root `native/kzg_native.cc`. Two changes: a failed build keeps the
+compiler's output, so `_require()` (and with it the port's host setup)
+fails loudly with its message; and the library is the port's own,
+`build/kzg_tpu_torch/native/libkzg_native-<hash>.so`, compiled with the
+Makefile's flags under an exclusive `fcntl` lock into a temporary name and
+moved into place by `os.replace`. Test processes that start side by side
+then never load a half-written file (the in-place `make -C native` of the
+JAX package's loader lets one process load the library while another's
+linker still writes it), and a changed source gets a new file.
 
 ctypes bindings for the host-side native BLS12-381 engine.
 
@@ -28,6 +34,8 @@ an (x, y) tuple of oracle field elements.
 """
 
 import ctypes
+import fcntl
+import hashlib
 import os
 import subprocess
 import threading
@@ -35,24 +43,49 @@ import threading
 from ..constants import P
 from ..oracle.field import Fp, Fp2
 
-_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
-_SO_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, "libkzg_native.so"))
+_ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
+_SOURCE = os.path.join(_ROOT, "native", "kzg_native.cc")
+_BUILD_DIR = os.path.join(_ROOT, "build", "kzg_tpu_torch", "native")
+# native/Makefile's compiler and flags (CXX and CXXFLAGS from the environment win, as there)
+_CXXFLAGS = "-O3 -fPIC -shared -std=c++17 -Wall -Wextra -Wno-unused-parameter"
 
 _lib = None
 _lib_lock = threading.Lock()
 _build_error = None
 
 
-def _build():
-    res = subprocess.run(
-        ["make", "-s", "-C", os.path.abspath(_NATIVE_DIR)],
-        capture_output=True,
-        text=True,
-    )
-    if res.returncode != 0:
-        raise NativeError(
-            f"make -C native failed ({res.returncode}):\n{res.stdout}{res.stderr}"
-        )
+def _compiler():
+    return os.environ.get("CXX", "g++"), os.environ.get("CXXFLAGS", _CXXFLAGS).split()
+
+
+def _library_path() -> str:
+    """Where the library of this source and these flags lives."""
+    cxx, flags = _compiler()
+    with open(_SOURCE, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join([cxx, *flags]).encode()).hexdigest()[:16]
+    return os.path.join(_BUILD_DIR, f"libkzg_native-{digest}.so")
+
+
+def _build() -> str:
+    """The library's path, compiled first if this source and these flags
+    have none. One process compiles at a time (an exclusive lock on a file
+    beside it); the compiler writes a temporary name that `os.replace`
+    moves into place, so a reader sees no file or the whole one."""
+    cxx, flags = _compiler()
+    so = _library_path()
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    with open(os.path.join(_BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(so):
+            tmp = f"{so}.{os.getpid()}.tmp"
+            res = subprocess.run([cxx, *flags, "-o", tmp, _SOURCE], capture_output=True,
+                                 text=True)
+            if res.returncode != 0:
+                raise NativeError(
+                    f"{cxx} failed ({res.returncode}) on {_SOURCE}:\n{res.stdout}{res.stderr}"
+                )
+            os.replace(tmp, so)
+    return so
 
 
 def _load():
@@ -61,11 +94,7 @@ def _load():
         if _lib is not None or _build_error is not None:
             return _lib
         try:
-            # Always invoke make: it is a no-op when the .so is newer than the
-            # source, and rebuilds after edits to kzg_native.cc (gating on the
-            # .so's existence silently kept loading stale binaries).
-            _build()
-            lib = ctypes.CDLL(_SO_PATH)
+            lib = ctypes.CDLL(_build())
         except Exception as e:  # noqa: BLE001 - any failure means "unavailable"
             _build_error = e
             return None

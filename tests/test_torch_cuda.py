@@ -1,5 +1,6 @@
 """Kernels K1-K9 (G1 and G2) on the card against their plain PyTorch twins,
-exact, K3 and the bucket loop also on skewed digits; the matmul-DFT NTT and
+exact, K3 and the bucket loop also on skewed digits, K4 at the window
+join's edge cases, K8 also in its cooperative mode; the matmul-DFT NTT and
 device setup on the card; the default device; and no fallback when the
 kernel build fails.
 
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from kzg_tpu_torch import config, kernels, native
+from kzg_tpu_torch.bench import horner as hbench
 from kzg_tpu_torch.constants import P, R
 from kzg_tpu_torch.curve import (
     G1, G2, cuda_ops, g1_from_device, g2_from_device, g2_generator_device,
@@ -285,7 +287,23 @@ def test_k8_mul_chain(dev, field, mod):
         got = cuda_field.mul_chain(field, k, a, b)
         assert kernels.launch_counts()["mul_chain"] == before + 1
         assert _equal(got, cuda_field.mul_chain_plain(field, k, a, b))
+        # the cooperative mode: each product over 16 lanes, as K4 runs it
+        assert _equal(cuda_field.mul_chain(field, k, a, b, cooperative=True), got)
     assert field.decode(got[:, :4]) == [x * pow(y, 65, mod) % mod for x, y in zip(xs[:4], ys[:4])]
+
+
+@pytest.mark.parametrize("case", list(hbench.CASES))
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_k4_edge_cases(dev, group, case):
+    """K4 against its twin at the join's edge cases: empty top windows,
+    every S_w at infinity, P == Q and P == -Q in the add, W = 1, c = 1 and
+    c = 16; one launch a join."""
+    s_all, c = hbench.edge_case_sums(group, case, dev)
+    name = f"{group}_horner_join"
+    before = kernels.launch_counts()[name]
+    got = cuda_ops.horner_join(s_all, c)
+    assert kernels.launch_counts()[name] == before + 1
+    assert _equal(got, cuda_ops.horner_join_plain(s_all, c))
 
 
 def test_k9_mxu_reduce_and_product(dev):
