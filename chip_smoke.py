@@ -36,6 +36,13 @@ non-zero before the result line:
                 cooperative mode (16 lanes a product, as K4 runs it), timed at
                 the probe's 2^19 lanes, and at one element for the latency of
                 one product of each mode, printed on a line of its own;
+                K1's Fermat chain `field_pow` (Fr and Fp, 1 and 16 elements,
+                e = m - 2 and a random e; timed beside the K1 chain it
+                replaced); the digit ladder over G1 and G2 at the group
+                iNTT's shape (2^11 lanes, c = 4, 64 windows; a lane with p
+                infinite, one with all-zero digits) and at its edge cases
+                (`bench.ladder.EDGE_DIGITS`: P == Q, P == -Q, infinity + Q;
+                also against the oracle), timed also at 2^12 and 2^14 lanes;
                 K9 mxu_reduce on the digit sums of a real 128-point DFT product
                 at 2^15 lanes and on the largest legal digit sums, timed on
                 the (64, 2^20) digit array of a 2^20 NTT's first pass, with
@@ -49,8 +56,11 @@ non-zero before the result line:
                 commit of a seeded random polynomial checked against the
                 native engine's MSM, witness, verify, tampered y rejected;
   6. counts   - kernel launch counts of phases 4-5 (reset just before
-                phase 4): K1, K2, K3, K4 and K7 (the witness's MSM has 512
-                buckets a window) must each be > 0;
+                phase 4): K1, field_pow, K2, K3, K4 and K7 (the witness's MSM
+                has 512 buckets a window) must each be > 0; phase 5 also
+                shows the 2^15 witness inverting with one field_pow launch
+                and verify_eval converting with two, and fewer K1 launches
+                than one Fermat chain of K1 products took (418 Fr, 609 Fp);
   7. golden   - the batched_2e8_k16 vector: commit, batched witness, h^Z
                 (G2) and g^r bytes, verify_eval_batched accepts;
   8. batched  - 2^15 coefficients opened at k = 16 points on the 2^15 SRS:
@@ -61,7 +71,9 @@ non-zero before the result line:
                 numerator checked at two random points with host ints;
  10. counts   - launch counts of phases 7-9 (reset just before phase 7),
                 every kernel of that path must be > 0;
-      (the Lagrange build timed group by group, before the next reset);
+      (the Lagrange build timed group by group, before the next reset:
+      one ladder launch a ladder, no stand-alone dbl or madd, one
+      field_pow an affine conversion);
  11. G2 MSM   - msm_g2 (G2 Pippenger) at 2^12 (the bucket loop on K7) and
                 2^15 points (K3) with random scalars, equal to the native
                 engine's g2_msm, one K4 launch a call;
@@ -78,7 +90,8 @@ non-zero before the result line:
                 Lagrange G2 points, h^z == lh[d-1] - lh[0]);
  14. counts   - launch counts of phases 11-13 (reset just before phase 11),
                 every kernel of that path must be > 0 (all but K3 over Fp:
-                its MSMs have 128 buckets a window and take K7);
+                its MSMs have 128 buckets a window and take K7; and K6,
+                whose madd runs inside the ladder kernel: 0 there);
  15. peaks    - `bench.mul_peak` for Fr and Fp at 2^19 lanes: the k = 65 rate,
                 the marginal rate (launch cost cancelled) and the k = 1 launch
                 beside the rate the kernel report's bound assumes;
@@ -97,7 +110,14 @@ non-zero before the result line:
                 K8, K9 and every kernel device setup and the 2^20 path touch
                 must be > 0;
  19. K3 2^20  - K3 alone at the 2^20 witness's shape (2^20 - 1 points,
-                c = 14), timed with its bound, its twin on the top window.
+                c = 14), timed with its bound, its twin on the top window;
+ 20. Lagrange - the trusted Lagrange SRS at 2^15 (the ceremony's largest
+                transcript) by the group iNTT of the 2^15 SRS's G1 and G2
+                powers (the ladder at 2^14 lanes), each group timed, held
+                point for point against the from-secret basis of the device
+                route;
+ 21. counts   - launch counts of phase 20's group iNTTs (reset just before):
+                the ladders, field_pow, K1 and K2 must be > 0.
 K3 and K7 run over sub-runs of at most L points of each bucket's run
 (`msm.pippenger.split_runs`); each phase that runs them prints L, the
 number of sub-runs, the longest one, the most sub-runs of one bucket and,
@@ -106,10 +126,13 @@ Setups other than phase 5's take the default engine, the device route.
 With --profile, the evaluation-form path is then profiled phase by phase
 (wall, launches, device time by kernel, idle share) and the table written
 to JSON (default build/profile_eval.json).
-The last lines are the kernel report (launches summed over the four
+The last lines are the kernel report (launches summed over the five
 counted runs; K4's rows also carry `chain_ms`, its critical path in
 dependent products at W = 26, c = 10 times the 16-lane Fp product's
-latency), the nvidia-smi line, and {"ok": true, "device": {...}}.
+latency; the ladders' `chain_ms` is a lane's critical path at c = 4,
+W = 64 at that latency and `throughput_ms` all the lanes' Fp products at
+the rate phase 15 measured; field_pow's `chain_ms` its 381 Fp products at
+that latency), the nvidia-smi line, and {"ok": true, "device": {...}}.
 
 Bounds in the kernel report. `bound_ms` is the larger of two times: the
 bytes the function must move (each input read once, each output written
@@ -123,7 +146,8 @@ Montgomery multiplication of N words is counted as 2 N^2 + N multiply-adds
 (CIOS), a field add or sub as 2 N word operations, a point operation by its
 field multiplications (dbl 7, madd 11, add 16 over Fp; 16, 29, 43 over
 Fp2). Data-dependent kernels count what this run's inputs need (the points
-of the sub-runs, the live lanes of a masked madd). `library_ms` is
+of the sub-runs, the live lanes of a masked madd, the ladder's non-zero
+digits). `library_ms` is
 null for every kernel: no PyTorch call computes 255- or 381-bit modular
 arithmetic.
 """
@@ -146,6 +170,7 @@ N_POINT = 1 << 12
 K_BATCH = 16
 EXP_COSET = 20
 EXP_EVAL = 12  # one EIP-4844 blob: 4096 evaluations
+EXP_LAGRANGE = 15  # the ceremony's largest transcript
 
 HBM_BYTES_PER_S = 3.35e12
 INT_MADS_PER_S = 67e12 / 4  # see the module docstring
@@ -353,6 +378,7 @@ def main(argv=None) -> int:
 
     from kzg_tpu_torch import kernels, native
     from kzg_tpu_torch.bench import horner as hbench
+    from kzg_tpu_torch.bench import ladder as lbench
     from kzg_tpu_torch.bench import mul_peak, peaks
     from kzg_tpu_torch.curve import horner_schedule
     from kzg_tpu_torch.config import configure, get_config
@@ -418,6 +444,23 @@ def main(argv=None) -> int:
 
     rng = random.Random(SEED)
     kinfo = {k: {} for k in kernels.REGISTRY}
+
+    def check_group_launches(group, before, exp):
+        """A group iNTT of 2^exp points (and its to_affine) since `before`:
+        one ladder launch a ladder (exp stages and the 1/d scale), no
+        stand-alone dbl or madd, one field_pow an affine conversion (each
+        ladder's table and the result) and no chain of K1 launches."""
+        after = kernels.launch_counts()
+        got = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        log(f"  {group} group iNTT 2^{exp} launches: {got}")
+        check(got.get(f"{group}_ladder", 0) == exp + 1
+              and got.get(f"{group}_dbl", 0) == 0 and got.get(f"{group}_madd", 0) == 0,
+              f"{group} group iNTT 2^{exp}: {exp + 1} ladder launches, no dbl or madd launch")
+        check(got.get("field_pow", 0) == exp + 2
+              and got.get("field_elementwise", 0) < (exp + 2) * 100,
+              f"{group} group iNTT 2^{exp}: one field_pow an affine conversion, "
+              f"{got.get('field_elementwise', 0)} K1 launches (the Fp chains alone were "
+              f"{(exp + 2) * 609})")
 
     # ---- 3. kernels against their plain twins ---------------------------------------------
     with phase("kernels vs plain"):
@@ -942,6 +985,87 @@ def main(argv=None) -> int:
         log("mul latency at one element (K8, k = 65 less k = 1): " + "; ".join(
             f"{f} {'16 lanes' if coop else 'one thread'} {v:.4f} us"
             for (f, coop), v in latency_us.items()) + f" [{card}]")
+        # K1's Fermat chain at the path's shapes: one element (the witness's
+        # Fr inverse, each to_affine's Fp root), and 16; an inverse and a
+        # random exponent, against the plain loop
+        pow_err = 0
+        pow_ms = {}
+        for F in (FR, FP):
+            for n_pow in (1, 16):
+                a = peaks.random_elements(F, n_pow, gen8)
+                a[:, 0] = 0  # inv(0) = 0
+                for e in (F.modulus - 2, rng.randrange(F.modulus)):
+                    err = max_abs_diff(cuda_field.field_pow(F, a, e),
+                                       cuda_field.field_pow_plain(F, a, e))
+                    pow_err = max(pow_err, err)
+                    check(err == 0, f"field_pow {F.name} at {n_pow} elements, "
+                          f"{e.bit_length()}-bit e, equals plain")
+                e = F.modulus - 2
+                pow_ms[(F.name, n_pow)] = cuda_ms(lambda: cuda_field.field_pow(F, a, e), 20)
+                if n_pow == 1:
+                    t0 = time.perf_counter()
+                    cuda_field.field_pow_plain(F, a, e)
+                    torch.cuda.synchronize()
+                    pow_ms[(F.name, "plain")] = (time.perf_counter() - t0) * 1e3
+                    pow_ms[(F.name, "k1_chain")] = cuda_ms(
+                        lambda: cuda_field.field_pow_chain(F, a, e), 3)
+                report[f"field_pow_{F.name.lower()}_{n_pow}_ms"] = pow_ms[(F.name, n_pow)]
+            log(f"  field_pow {F.name}, e = m - 2 ({F.modulus.bit_length()} bits): kernel "
+                f"{pow_ms[(F.name, 1)]:.4f} ms at 1 element, {pow_ms[(F.name, 16)]:.4f} ms at 16; "
+                f"the K1 chain it replaced {pow_ms[(F.name, 'k1_chain')]:.4f} ms; plain "
+                f"{pow_ms[(F.name, 'plain')]:.2f} ms [{card}]")
+        e_fp = P - 2
+        kinfo["field_pow"].update(
+            max_abs_err=pow_err, ms=pow_ms[("Fp", 1)], plain_ms=pow_ms[("Fp", "plain")],
+            bound=bound(2 * 48, (e_fp.bit_length() + bin(e_fp).count("1")) * FP_MUL_MADS),
+            chain_ms=e_fp.bit_length() * latency_us[("Fp", True)] * 1e-3)
+        report["field_pow_fr_chain_ms"] = (R - 2).bit_length() * latency_us[("Fr", True)] * 1e-3
+
+        # the digit ladder at the group iNTT's shape (2^11 lanes, c = 4, 64
+        # windows), G1 and G2, against its twin; its edge cases against the
+        # twin and the oracle; timed also at 2^12 and 2^14 lanes
+        c_lad = get_config().group_ladder_window
+        w_lad = -(-255 // c_lad)
+        gen_l = torch.Generator(device=dev).manual_seed(SEED + 10)
+        for group, kname in (("g1", "g1_ladder"), ("g2", "g2_ladder")):
+            g2 = group == "g2"
+            tab = lbench.random_ladder(group, N_POINT // 2, c_lad, w_lad, gen_l)
+            tab[2][1] = True  # p infinite
+            tab[3][:, 2] = 0  # every round skipped
+            got = cuda_ops.ladder(*tab, c_lad)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = cuda_ops.ladder_plain(*tab, c_lad)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            err = max_abs_diff(got, want)
+            check(err == 0, f"{kname} {N_POINT // 2} lanes, c = {c_lad}, W = {w_lad} equals plain")
+            etab = lbench.edge_case(group, dev)
+            got = cuda_ops.ladder(*etab[:5])
+            e_err = max_abs_diff(got, cuda_ops.ladder_plain(*etab[:5]))
+            check(e_err == 0 and (g2_from_device if g2 else g1_from_device)(got) == etab[5],
+                  f"{kname} edge cases (P == Q, P == -Q, zero digits, p infinite, inf + Q) "
+                  "equal plain and the oracle")
+            live = int((tab[3] != 0).sum())
+            muls = (w_lad * c_lad * POINT_MULS["dbl"][g2] * tab[3].shape[1]
+                    + live * POINT_MULS["madd"][g2])
+            coord_b = 96 if g2 else 48
+            lanes_l = tab[3].shape[1]
+            kinfo[kname].update(
+                max_abs_err=max(err, e_err), ms=cuda_ms(lambda: cuda_ops.ladder(*tab, c_lad), 5),
+                plain_ms=plain_ms,
+                bound=bound(coord_b * (2 * ((1 << c_lad) - 1) + 3) * lanes_l
+                            + 4 * w_lad * lanes_l + lanes_l, muls * FP_MUL_MADS),
+                muls=muls)
+            for lanes_t in (N_POINT, 1 << (EXP_LAGRANGE - 1)):
+                tab_t = lbench.random_ladder(group, lanes_t, c_lad, w_lad, gen_l)
+                report[f"{kname}_{lanes_t}_ms"] = cuda_ms(lambda: cuda_ops.ladder(*tab_t, c_lad), 3)
+            log(f"  {kname} c = {c_lad}, W = {w_lad}: kernel {kinfo[kname]['ms']:.4f} ms at "
+                f"{lanes_l} lanes, {report[f'{kname}_{N_POINT}_ms']:.4f} ms at {N_POINT}, "
+                f"{report[f'{kname}_{1 << (EXP_LAGRANGE - 1)}_ms']:.4f} ms at "
+                f"{1 << (EXP_LAGRANGE - 1)}; plain {plain_ms:.2f} ms [{card}]")
+            del tab, tab_t
+
         lanes8 = 1 << 19
         a = peaks.random_elements(FP, lanes8, gen8)
         b = peaks.random_elements(FP, lanes8, gen8)
@@ -1048,15 +1172,29 @@ def main(argv=None) -> int:
         x = rng.randrange(R)
         y = horner(coeffs, x, R)
         torch.cuda.synchronize()
+        before = kernels.launch_counts()
         t0 = time.perf_counter()
         witness = prover.create_witness(poly, (x, y))
         torch.cuda.synchronize()
         witness_s = time.perf_counter() - t0
+        mid = kernels.launch_counts()
         verifier = KZGVerifier(params)
         t0 = time.perf_counter()
         ok = verifier.verify_eval((x, y), commitment, witness)
         verify_s = time.perf_counter() - t0
+        after = kernels.launch_counts()
         check(ok, "2^15 verify_eval accepts")
+        # each inverse is one field_pow launch; no chain of K1 launches is left
+        # (the Fr chain of r - 2 was 418 K1 launches, the Fp chain of p - 2 609)
+        k1_w, pow_w = (mid[k] - before[k] for k in ("field_elementwise", "field_pow"))
+        k1_v, pow_v = (after[k] - mid[k] for k in ("field_elementwise", "field_pow"))
+        log(f"  launches: witness K1 {k1_w}, field_pow {pow_w}; verify_eval K1 {k1_v}, "
+            f"field_pow {pow_v}")
+        check(pow_w == 1 and k1_w < 418,
+              f"the witness inverts with one field_pow launch and {k1_w} < 418 K1 launches")
+        check(pow_v == 2 and k1_v < 609,
+              f"verify_eval's two affine conversions take two field_pow launches and "
+              f"{k1_v} < 609 K1 launches")
         check(not verifier.verify_eval((x, (y + 1) % R), commitment, witness),
               "2^15 verify_eval rejects a tampered y")
         log(f"  2^15 commit {commit_s:.4f} s (runs {', '.join(f'{t:.4f}' for t in times)}), "
@@ -1070,7 +1208,7 @@ def main(argv=None) -> int:
     with phase("launch counts 4-5"):
         counts_single = kernels.launch_counts()
         log(f"  {counts_single}")
-        for k in ("field_elementwise", "g1_add", "g1_dbl", "g1_bucket_accumulate",
+        for k in ("field_elementwise", "field_pow", "g1_add", "g1_dbl", "g1_bucket_accumulate",
                   "g1_madd_multi", "g1_horner_join"):
             check(counts_single[k] > 0,
                   f"{k} launched {counts_single[k]} times on the single-opening path")
@@ -1177,10 +1315,12 @@ def main(argv=None) -> int:
         basis = {}
         for curve, src in ((G1, sub_params.gs), (G2, sub_params.hs)):
             torch.cuda.synchronize()
+            before = kernels.launch_counts()
             t0 = time.perf_counter()
             basis[curve.name] = curve.to_affine(eval_form._group_intt(curve, src, dom12))
             torch.cuda.synchronize()
             group_s[curve.name] = time.perf_counter() - t0
+            check_group_launches(curve.name.lower(), before, EXP_EVAL)
 
     # ---- 11-13. the G2 MSM and the evaluation-form path, counted --------------------------------
     kernels.reset_launches()
@@ -1320,9 +1460,13 @@ def main(argv=None) -> int:
         for k, n_launch in counts_eval.items():
             # a 2^12-point G1 MSM takes the bucket loop on K7, so this run
             # gives the G1 instantiation of K3 nothing; K8 and K9 belong to
-            # the probe and the matmul-DFT NTT (phases 15-16)
-            check(n_launch > 0 or k in ("g1_bucket_accumulate", "mul_chain", "mxu_reduce"),
+            # the probe and the matmul-DFT NTT (phases 15-16); K6's madd
+            # runs inside the ladder kernel
+            check(n_launch > 0 or k in ("g1_bucket_accumulate", "mul_chain", "mxu_reduce",
+                                        "g1_madd", "g2_madd"),
                   f"{k} launched {n_launch} times on the G2 MSM and evaluation-form path")
+        check(counts_eval["g1_madd"] == 0 and counts_eval["g2_madd"] == 0,
+              "no stand-alone madd launch on the evaluation-form path (the ladder has them)")
 
     # ---- 15-17. the probe, the matmul-DFT NTT, device setup and the 2^20 path, counted -----------
     kernels.reset_launches()
@@ -1463,8 +1607,6 @@ def main(argv=None) -> int:
                   "g2_add", "g1_bucket_accumulate", "g1_horner_join"):
             check(counts_big[k] > 0, f"{k} launched {counts_big[k]} times on the probe, "
                   "matmul-DFT, device-setup and 2^20 path")
-        counts = {k: counts_single[k] + counts_batched[k] + counts_eval[k] + counts_big[k]
-                  for k in counts_eval}
 
     # ---- 19. K3 alone at the 2^20 witness's shape, outside the counted run ---------------------
     with phase("K3 at the 2^20 witness shape"):
@@ -1499,6 +1641,48 @@ def main(argv=None) -> int:
                       k3_witness_2e20_bound_ms=b20[0])
         del big_gs, inputs, rows, order, got, want
 
+    # ---- 20-21. the trusted Lagrange SRS at 2^15, counted ------------------------------------
+    kernels.reset_launches()
+
+    with phase(f"trusted Lagrange SRS 2^{EXP_LAGRANGE}"):
+        dom15 = Domain(EXP_LAGRANGE)
+        lag15 = {}
+        for curve, src in ((G1, params.gs), (G2, params.hs)):
+            torch.cuda.synchronize()
+            before = kernels.launch_counts()
+            t0 = time.perf_counter()
+            lag15[curve.name] = curve.to_affine(
+                eval_form._group_intt(curve, tuple(t[..., :dom15.d] for t in src), dom15))
+            torch.cuda.synchronize()
+            report[f"lagrange_2e{EXP_LAGRANGE}_{curve.name.lower()}_s"] = time.perf_counter() - t0
+            check_group_launches(curve.name.lower(), before, EXP_LAGRANGE)
+        counts_lag = kernels.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref15 = compute_lagrange_basis_from_secret(SEED, EXP_LAGRANGE, device=dev)
+        torch.cuda.synchronize()
+        secret15_s = time.perf_counter() - t0
+        check(all(torch.equal(a, b) for a, b in zip(lag15["G1"], ref15.lg)),
+              f"trusted Lagrange G1 basis 2^{EXP_LAGRANGE} equals the from-secret basis "
+              f"(device route), all {dom15.d} points")
+        check(all(torch.equal(a, b) for a, b in zip(lag15["G2"], ref15.lh)),
+              f"trusted Lagrange G2 basis 2^{EXP_LAGRANGE} equals the from-secret basis "
+              f"(device route), all {dom15.d} points")
+        report[f"lagrange_secret_device_2e{EXP_LAGRANGE}_s"] = secret15_s
+        log(f"  Lagrange SRS 2^{EXP_LAGRANGE} by the group iNTT: G1 "
+            f"{report[f'lagrange_2e{EXP_LAGRANGE}_g1_s']:.4f} s, G2 "
+            f"{report[f'lagrange_2e{EXP_LAGRANGE}_g2_s']:.4f} s; from the secret by the device "
+            f"route {secret15_s:.4f} s [{card}]")
+        del lag15, ref15
+
+    with phase(f"launch counts 20"):
+        log(f"  {counts_lag}")
+        for k in ("g1_ladder", "g2_ladder", "field_pow", "field_elementwise", "g1_add", "g2_add"):
+            check(counts_lag[k] > 0, f"{k} launched {counts_lag[k]} times on the trusted "
+                  f"Lagrange SRS at 2^{EXP_LAGRANGE}")
+        counts = {k: counts_single[k] + counts_batched[k] + counts_eval[k] + counts_big[k]
+                  + counts_lag[k] for k in counts_eval}
+
     if args.profile:
         with phase(f"profile of the evaluation-form path 2^{EXP_EVAL}"):
             dense = torch.from_numpy(FR.encode([rng.randrange(R) for _ in range(d)])).to(dev)
@@ -1528,6 +1712,24 @@ def main(argv=None) -> int:
         log(f"  {kname}: critical path {products} dependent products at W = 26, c = {C_MAIN}, "
             f"chain {kinfo[kname]['chain_ms']:.4f} ms against the kernel's "
             f"{kinfo[kname]['ms']:.4f} ms [{card}]")
+    # the ladder: a lane's critical path, W (c dbl + 1 madd) at the timed
+    # shape, times one 16-lane Fp product's latency (the latency bound), and
+    # all the lanes' Fp products at the rate phase 15 measured (the
+    # throughput bound); field_pow: its chain of products at that latency
+    for kname, ncomp in (("g1_ladder", 1), ("g2_ladder", 2)):
+        prog = horner_schedule.expand(ncomp)
+        products = w_lad * (c_lad * horner_schedule.critical_products(prog, "dbl")
+                            + horner_schedule.critical_products(prog, "madd"))
+        kinfo[kname]["chain_ms"] = products * latency_us[("Fp", True)] * 1e-3
+        kinfo[kname]["throughput_ms"] = kinfo[kname]["muls"] / report["fp_mul_per_s"] * 1e3
+        log(f"  {kname}: critical path {products} dependent products at c = {c_lad}, W = "
+            f"{w_lad}, chain {kinfo[kname]['chain_ms']:.4f} ms; {kinfo[kname]['muls']} Fp "
+            f"products at the measured rate {kinfo[kname]['throughput_ms']:.4f} ms; kernel "
+            f"{kinfo[kname]['ms']:.4f} ms [{card}]")
+    log(f"  field_pow: chain {kinfo['field_pow']['chain_ms']:.4f} ms (Fp, {(P - 2).bit_length()} "
+        f"products), {report['field_pow_fr_chain_ms']:.4f} ms (Fr, {(R - 2).bit_length()}), "
+        f"against the kernel's {kinfo['field_pow']['ms']:.4f} / "
+        f"{report['field_pow_fr_1_ms']:.4f} ms [{card}]")
     kreport = {"kernels": [
         {
             "name": k.name,
@@ -1541,7 +1743,8 @@ def main(argv=None) -> int:
             "bound_ms": kinfo[k.name]["bound"][0],
             "bound_by": kinfo[k.name]["bound"][1],
             "library_ms": None,
-            **({"chain_ms": kinfo[k.name]["chain_ms"]} if "chain_ms" in kinfo[k.name] else {}),
+            **{key: kinfo[k.name][key] for key in ("chain_ms", "throughput_ms")
+               if key in kinfo[k.name]},
         }
         for k in kernels.REGISTRY.values()
     ]}

@@ -25,6 +25,18 @@
 // a warp: the product K4 chains, so one element's marginal time is that
 // product's latency beside the one-thread CIOS's.
 //
+// K1's Fermat chain, `field_pow` (`kzg_field_pow`), replaces the chain of
+// K1 launches that `pow_static` ran on `_run_elementwise`
+// (pallas_field.py:295; the scan of kzg_tpu/fields/limb.py:303-320): a^e
+// for an exponent passed by value as words, square and multiply, LSB
+// first, in ONE launch. One element a warp: at step s lanes 0-15 form
+// acc * base and lanes 16-31 base^2 at the same time, each product over its
+// half-warp (coop.cuh, both halves under the full-warp mask), and bit s of
+// e picks whether acc takes the product; acc and base live in shared
+// memory, written to the other buffer each step. inv(0) = 0 falls out of
+// 0^e = 0. Bound: the latency of the chain, nbits dependent 16-lane
+// products (255 for Fr's r - 2, 381 for Fp's p - 2); one row in, one out.
+//
 // C interface (ctypes): each entry launches on the caller's stream,
 // allocates nothing, and returns cudaGetLastError() of the launch.
 
@@ -108,6 +120,38 @@ mul_chain_coop_kernel(uint32_t* __restrict__ out, const uint32_t* __restrict__ a
     nxt = t;
   }
   if (lane < F::N) out[lane * n + i] = acc[lane];
+}
+
+// a^e: acc (half 0) and base (half 1) of each step in buffer cur
+struct Exponent {
+  uint32_t w[12];  // little-endian words of e, zero above nbits
+};
+
+template <class F>
+__global__ void __launch_bounds__(32 * kCoopWarps)
+pow_coop_kernel(uint32_t* __restrict__ out, const uint32_t* __restrict__ a, const Exponent e,
+                int nbits, long long n) {
+  __shared__ uint32_t sm[kCoopWarps][2][2][kCoopLanes];  // [warp][buffer][acc, base][word]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long i = (long long)blockIdx.x * kCoopWarps + warp;
+  if (i >= n) return;  // the whole warp
+  const CoopLane<F> L(lane, kCoopPairMask);
+  const int half = lane >> 4;  // 0: acc * base, 1: base * base
+  uint32_t(*buf)[2][kCoopLanes] = sm[warp];
+  buf[0][half][L.j] = L.j >= F::N ? 0u : half ? a[L.j * n + i] : F::one(L.j);
+  __syncwarp();
+  int cur = 0;
+#pragma unroll 1
+  for (int s = 0; s < nbits; s++) {
+    const uint32_t* acc = buf[cur][0];
+    const uint32_t* base = buf[cur][1];
+    const uint32_t r = coop_mul<F>(L, half ? base : acc, base);
+    const bool bit = (e.w[s >> 5] >> (s & 31)) & 1u;
+    buf[cur ^ 1][half][L.j] = (half || bit) ? r : acc[L.j];
+    cur ^= 1;
+    __syncwarp();
+  }
+  if (half == 0 && L.j < F::N) out[L.j * n + i] = buf[cur][0][L.j];
 }
 
 inline unsigned blocks_for(long long n) {
@@ -200,6 +244,27 @@ int kzg_field_mul_chain_coop(int field, void* out, const void* a, const void* b,
     mul_chain_coop_kernel<Fp><<<g, 32 * kCoopWarps, 0, s>>>(o, x, y, k, n);
   } else {
     return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// out = a^e (Montgomery, e a plain integer of nbits <= 32 N bits whose
+// words are read from host memory and passed by value); one element a warp
+int kzg_field_pow(int field, void* out, const void* a, const void* e_host, int nbits,
+                  long long n, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto o = static_cast<uint32_t*>(out);
+  auto x = static_cast<const uint32_t*>(a);
+  const int words = field == 0 ? Fr::N : Fp::N;
+  if (n <= 0 || nbits < 0 || nbits > 32 * words || (field != 0 && field != 1))
+    return (int)cudaErrorInvalidValue;
+  Exponent e{};
+  for (int l = 0; l < words; l++) e.w[l] = static_cast<const uint32_t*>(e_host)[l];
+  const unsigned g = (unsigned)((n + kCoopWarps - 1) / kCoopWarps);
+  if (field == 0) {
+    pow_coop_kernel<Fr><<<g, 32 * kCoopWarps, 0, s>>>(o, x, e, nbits, n);
+  } else {
+    pow_coop_kernel<Fp><<<g, 32 * kCoopWarps, 0, s>>>(o, x, e, nbits, n);
   }
   return (int)cudaGetLastError();
 }

@@ -46,8 +46,10 @@ using kzg::Fp;
 constexpr int kSlotWords = 16;
 
 // Runs stages [first, end) of the program: warp w takes chains w,
-// w + kWarps, ... of each stage; its lanes 0-15 run the chain's operations
-// in order, lanes 16-31 only meet the barriers.
+// w + kWarps, ... of each stage; a half-warp whose `active` is set runs the
+// chain's operations in order on the slots at `sm` (K4: lanes 0-15; the
+// ladder: each half on its own lane's slots), the others only meet the
+// barriers.
 template <class Prog>
 __device__ __forceinline__ void run_stages(uint32_t* sm, const CoopLane<Fp>& L, int warp,
                                            bool active, int first, int end) {
@@ -68,7 +70,7 @@ __device__ __forceinline__ void run_stages(uint32_t* sm, const CoopLane<Fp>& L, 
             r = kzg::coop_sub<Fp>(L, a[L.j], b[L.j]);
           }
           sm[kSlotWords * ((op >> 8) & 0xffu) + L.j] = r;
-          __syncwarp(kzg::kCoopMask);  // the warp's next operation reads every word
+          __syncwarp(L.mask);  // the half's next operation reads every word
         }
       }
     }

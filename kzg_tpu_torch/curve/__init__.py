@@ -2,9 +2,10 @@
 
 `G1` is the group law over `FP` whose batch point ops (`add`, `dbl`, `madd`,
 `madd_multi`, `bucket_accumulate`, `window_join`) run as kernels K2-K4, K6
-and K7 on CUDA
-tensors (and as their plain twins on CPU tensors); its remaining formulas
-(`to_affine`, `eq`, the ladders' glue) are tensor code over K1 field math.
+and K7 on CUDA tensors, and the rounds of its digit ladder
+(`scalar_mul_digits`) as one launch of the ladder kernel (all of them as
+their plain twins on CPU tensors); its remaining formulas (`to_affine`,
+`eq`, the ladders' table) are tensor code over K1 field math.
 `G2` is the same over Fp2 (`Fp2Adapter(FP)`), on the Fp2 instantiations of
 those kernels. G2 coordinates are (12, 2, *batch) words, c0 then c1 on
 axis 1.
@@ -21,14 +22,18 @@ from .ops import CurveOps, Fp2Adapter
 
 
 class _KernelCurve(CurveOps):
-    """A curve whose bucket kernels (K3, K4; G1 or G2 by the shapes they are
-    given) stand behind bucket_accumulate / window_join."""
+    """A curve whose bucket kernels (K3, K4) and ladder kernel (G1 or G2 by
+    the shapes they are given) stand behind bucket_accumulate / window_join
+    and the rounds of scalar_mul_digits."""
 
     def bucket_accumulate(self, rows, order, start, count):
         return cuda_ops.bucket_accumulate(rows, order, start, count)
 
     def window_join(self, s_all, c: int):
         return cuda_ops.horner_join(s_all, c)
+
+    def ladder_rounds(self, tx, ty, p_inf, digits, c: int):
+        return cuda_ops.ladder(tx, ty, p_inf, digits, c)
 
 
 class _G1(_KernelCurve):

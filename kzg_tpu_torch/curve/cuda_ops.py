@@ -82,6 +82,16 @@ registers and reads step s's point from the step-major (12[, 2], S, M)
 batch, coalesced over lanes. Bound: one thread's chain of up to S madds,
 and the lanes' total madds at the multiply rate.
 
+The digit ladder (`ladder`, counted as `g1_ladder` / `g2_ladder`,
+`csrc/ladder.cuh`) runs the rounds of `CurveOps.scalar_mul_digits` in one
+launch: for every lane W windows of c doublings (K2's `dbl`) and one
+skip-masked mixed addition (K6's `madd`) with the affine table entry the
+lane's digit selects, on K4's engine (two lanes a block, one a
+half-warp, each level's products side by side, 16 lanes a product). It replaces, on that path, the
+Pallas `dbl` / `madd` launches of `kzg_tpu/curve/ops.py:316-374`
+(`pallas_ops.py:707,270`). Bound: each lane's chain of W (c + 1) dependent
+point operations, and all lanes' products at the card's multiply rate.
+
 Each wrapper takes the plain twin for CPU tensors and launches its kernel
 for CUDA tensors; `*_plain` are the twins, usable on any device.
 """
@@ -485,3 +495,59 @@ def horner_join(s_all, c: int):
     kernels.check_status(rc, what)
     group.counter("horner_join").launches += 1
     return tuple(out)
+
+
+# ---- the digit ladder -----------------------------------------------------------------
+
+def _ladder_group(tx, p_inf):
+    """Table coordinates are (12, T, *batch) for G1, (12, 2, T, *batch) for G2."""
+    return _G2K if tx.dim() - p_inf.dim() == 3 else _G1K
+
+
+def ladder_plain(tx, ty, p_inf, digits, c: int):
+    """Plain twin of the ladder kernel, G1 or G2 by the table's shape: the
+    rounds of `CurveOps.scalar_mul_digits` on the plain point formulas."""
+    return _ladder_group(tx, p_inf).plain.ladder_rounds(tx, ty, p_inf, digits, c)
+
+
+def ladder(tx, ty, p_inf, digits, c: int):
+    """The digit ladder's rounds in one launch: per lane, from infinity, W
+    windows (MSB first) of c doublings and one mixed addition of table entry
+    digit - 1, skipped where the digit is 0 or p is infinite.
+
+    tx, ty: the affine multiples 1 .. 2^c - 1 of each lane's point,
+            (12, T, *batch) for G1 or (12, 2, T, *batch) for G2
+            (`CurveOps.ladder_table`);
+    p_inf:  (*batch) bool, the lanes whose point is infinite;
+    digits: (W, *batch) integers in [0, 2^c).
+    Returns the Jacobian (X, Y, Z), 3 x (12[, 2], *batch)."""
+    if _is_cpu(tx):
+        return ladder_plain(tx, ty, p_inf, digits, c)
+    group = _ladder_group(tx, p_inf)
+    what = f"{group.name}_ladder"
+    dev = tx.device
+    if not 1 <= c <= 16:
+        raise kernels.KernelError(f"{what}: window {c} outside [1, 16]")
+    batch = tuple(p_inf.shape)
+    n = math.prod(batch)
+    t_count = (1 << c) - 1
+    for t in (tx, ty):
+        if tuple(t.shape) != group.lead + (t_count,) + batch:
+            raise kernels.KernelError(
+                f"{what}: table must be {group.lead + (t_count,) + batch}, got {tuple(t.shape)}")
+    if (p_inf.dtype != torch.bool or p_inf.device != dev or digits.device != dev
+            or tuple(digits.shape[1:]) != batch or digits.dtype.is_floating_point):
+        raise kernels.KernelError(
+            f"{what}: p_inf must be bool {batch} and digits integer (W, {batch}) on {dev}")
+    windows = digits.shape[0]
+    if not windows or not n:
+        return group.plain.infinity(batch, dev)
+    tab = [_coord(t, dev, t_count * n, what, group.lead) for t in (tx, ty)]
+    dig = digits.reshape(windows, n).to(torch.int32).contiguous()
+    mask = p_inf.reshape(-1).contiguous().view(torch.uint8)
+    out = [torch.empty(group.lead + (n,), dtype=torch.int32, device=dev) for _ in range(3)]
+    rc = group.entry("ladder")(*_ptrs(out), *_ptrs(tab), dig.data_ptr(), mask.data_ptr(),
+                               windows, c, t_count, n, kernels.stream_handle(dev))
+    kernels.check_status(rc, what)
+    group.counter("ladder").launches += 1
+    return tuple(o.reshape(group.lead + batch) for o in out)

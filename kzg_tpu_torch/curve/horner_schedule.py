@@ -1,13 +1,15 @@
 """The program that kernel K4 (`csrc/horner.cuh`) runs for one doubling and
-one addition, as tables of field operations, and its header.
+one addition, and the digit ladder (`csrc/ladder.cuh`) for one doubling and
+one mixed addition, as tables of field operations, and their header.
 
-K4 is one block that walks the Horner chain of the window join. Its warps
-share the point in shared memory; each warp runs one CHAIN of field
-operations at a time (a Montgomery product or a modular add / sub, each
-spread over the warp's lanes a word a lane), and a block barrier separates
-the STAGES. A stage's chains are independent, so they run side by side:
-the products of one level of dbl-2009-l or add-2007-bl, and over Fp2 the
-three Karatsuba products of each Fp2 product.
+K4 is one block that walks the Horner chain of the window join; the ladder
+kernel runs two lanes of the digit ladder a block on the same engine (one a
+half-warp). The warps share the point in shared memory; each warp runs one
+CHAIN of field operations at a time (a Montgomery product or a modular
+add / sub, each spread over 16 lanes a word a lane), and a block barrier
+separates the STAGES. A stage's chains are independent, so they run side by
+side: the products of one level of dbl-2009-l, add-2007-bl or madd-2007-bl,
+and over Fp2 the three Karatsuba products of each Fp2 product.
 
 The formulas are written here at the level of a coordinate (Fp for G1,
 Fp2 for G2) as stages of chains; `expand` lowers them to Fp operations on
@@ -24,8 +26,10 @@ linear steps before and after its product included. Over Fp2:
   * a linear chain becomes one Fp chain a component.
 
 Every value is canonical in [0, p), so any correct formula gives the same
-words: the program equals the plain twin (`CurveOps.window_join`) word for
-word, which `simulate_join` checks on the CPU with Python integers.
+words: the program equals the plain twins (`CurveOps.window_join`, the
+rounds of `CurveOps.scalar_mul_digits`) word for word, which
+`simulate_join` and `simulate_ladder` check on the CPU with Python
+integers.
 
 Regenerate the header after a change here:
 
@@ -112,7 +116,27 @@ ADD_G1 = ADD_G2[:3] + [  # the same with s1 j = (s1 h) i, and the last two stage
     [[("add", "V2", "V", "V"), ("sub", "X3", "RR", "J"), ("sub", "X3", "X3", "V2"),
       ("sub", "VX", "V", "X3"), ("mul", "RY", "R", "VX"), ("sub", "Y3", "RY", "S1J")]],
 ]
-PROGRAMS = {1: (DBL_G1, ADD_G1), 2: (DBL_G2, ADD_G2)}
+# madd-2007-bl, (X, Y, Z) + affine (X2, Y2) -> (X3, Y3, Z3), with
+# (Z1 + H)^2 - Z1^2 - H^2 = 2 Z1 H and Y1 J = (Y1 H) I; H and R as in the
+# addition, for its exceptional cases. Over Fp the last stage is one chain.
+MADD_G2 = [
+    [[("sqr", "Z1Z1", "Z")]],
+    [[("mul", "U2", "X2", "Z1Z1"), ("sub", "H", "U2", "X")],
+     [("mul", "ZZZ", "Z", "Z1Z1")]],
+    [[("sqr", "HH", "H"), ("add", "I", "HH", "HH"), ("add", "I", "I", "I")],
+     [("mul", "S2", "Y2", "ZZZ"), ("sub", "R", "S2", "Y"), ("add", "R", "R", "R")],
+     [("mul", "Z3", "Z", "H"), ("add", "Z3", "Z3", "Z3")],
+     [("mul", "YH", "Y", "H")]],
+    [[("mul", "J", "H", "I")],
+     [("mul", "V", "X", "I")],
+     [("sqr", "RR", "R")],
+     [("mul", "YJ", "YH", "I"), ("add", "YJ", "YJ", "YJ")]],
+    [[("add", "V2", "V", "V"), ("sub", "X3", "RR", "J"), ("sub", "X3", "X3", "V2"),
+      ("sub", "VX", "V", "X3")]],
+    [[("mul", "RY", "R", "VX"), ("sub", "Y3", "RY", "YJ")]],
+]
+MADD_G1 = MADD_G2[:4] + [[MADD_G2[4][0] + MADD_G2[5][0]]]
+PROGRAMS = {1: (DBL_G1, ADD_G1, MADD_G1), 2: (DBL_G2, ADD_G2, MADD_G2)}
 NAMED = ("X", "Y", "Z", "X2", "Y2", "Z2", "X3", "Y3", "Z3", "H", "R")
 _TEMPS_PER_CHAIN = 5  # Fp2 lowering: a0 + a1, a0 - a1 or b0 + b1, a0 b0, a1 b1, the third product
 
@@ -121,7 +145,9 @@ _TEMPS_PER_CHAIN = 5  # Fp2 lowering: a0 + a1, a0 - a1 or b0 + b1, a0 b0, a1 b1,
 class Program:
     """One group's lowered program. `stages` is a list of stages, each a
     list of chains, each a list of (kind, dst, a, b) Fp slot operations;
-    the doubling is stages [0, dbl_end), the addition [dbl_end, len)."""
+    the doubling is stages [0, dbl_end), the addition [dbl_end, len). The
+    mixed addition of the digit ladder is `madd`, stages on the same slots
+    (the header lists them after the addition's)."""
 
     ncomp: int
     warps: int
@@ -129,6 +155,7 @@ class Program:
     nslots: int
     stages: list
     dbl_end: int
+    madd: list
 
 
 def _names(progs):
@@ -196,35 +223,39 @@ def _check_stage(stage):
 
 
 def expand(ncomp: int) -> Program:
-    """The doubling and the addition lowered to Fp slot operations for G1
-    (ncomp = 1) or G2 (ncomp = 2)."""
-    dbl, add = PROGRAMS[ncomp]
-    names = _names((dbl, add))
+    """The doubling, the addition and the mixed addition lowered to Fp slot
+    operations for G1 (ncomp = 1) or G2 (ncomp = 2)."""
+    dbl, add, madd = PROGRAMS[ncomp]
+    names = _names((dbl, add, madd))
     slot = {n: ncomp * i for i, n in enumerate(names)}
     temps = ncomp * len(names)
-    widest = max(len(s) for s in dbl + add)
+    widest = max(len(s) for s in dbl + add + madd)
     nslots = temps + (_TEMPS_PER_CHAIN * widest if ncomp == 2 else 0)
-    stages = []
-    for stage in dbl:
-        stages.extend(_lower_stage(stage, ncomp, slot, temps))
+
+    def lower(prog):
+        return [fp for stage in prog for fp in _lower_stage(stage, ncomp, slot, temps)]
+
+    stages = lower(dbl)
     dbl_end = len(stages)
-    for stage in add:
-        stages.extend(_lower_stage(stage, ncomp, slot, temps))
-    for stage in stages:
+    stages += lower(add)
+    madd_stages = lower(madd)
+    for stage in stages + madd_stages:
         _check_stage(stage)
     assert nslots < 256
-    return Program(ncomp, WARPS[ncomp], slot, nslots, stages, dbl_end)
+    return Program(ncomp, WARPS[ncomp], slot, nslots, stages, dbl_end, madd_stages)
 
 
 def critical_products(prog: Program, which: str) -> int:
-    """Dependent products on the doubling's or the addition's critical path
-    as the block runs it: per stage, the most products one warp runs when
-    chain k goes to warp k mod warps."""
-    rng = range(0, prog.dbl_end) if which == "dbl" else range(prog.dbl_end, len(prog.stages))
+    """Dependent products on the critical path of the doubling ("dbl"), the
+    addition ("add") or the mixed addition ("madd") as the block runs it:
+    per stage, the most products one warp runs when chain k goes to warp k
+    mod warps."""
+    stages = {"dbl": prog.stages[:prog.dbl_end], "add": prog.stages[prog.dbl_end:],
+              "madd": prog.madd}[which]
     total = 0
-    for s in rng:
+    for stage in stages:
         per_warp = [0] * prog.warps
-        for k, chain in enumerate(prog.stages[s]):
+        for k, chain in enumerate(stage):
             per_warp[k % prog.warps] += sum(op[0] == MUL for op in chain)
         total += max(per_warp)
     return total
@@ -236,8 +267,8 @@ _R_INV = pow(1 << 384, -1, P)
 _ONE = (1 << 384) % P
 
 
-def _run(prog, mem, first, end):
-    for stage in prog.stages[first:end]:
+def _run(stages, mem):
+    for stage in stages:
         for chain in stage:
             for kind, d, a, b in chain:
                 if kind == MUL:
@@ -272,22 +303,69 @@ def simulate_join(prog: Program, sums, c: int):
     for w in reversed(range(len(sums))):
         for _ in range(c):
             if not zero("Z"):
-                _run(prog, mem, 0, prog.dbl_end)
+                _run(prog.stages[:prog.dbl_end], mem)
         for name, v in zip(("X2", "Y2", "Z2"), sums[w]):
             put(name, v)
         if zero("Z"):
             for a, b in zip("XYZ", ("X2", "Y2", "Z2")):
                 put(a, coord(b))
         elif not zero("Z2"):
-            _run(prog, mem, prog.dbl_end, len(prog.stages))
+            _run(prog.stages[prog.dbl_end:], mem)
             if not zero("H"):
                 for a, b in zip("XYZ", ("X3", "Y3", "Z3")):
                     put(a, coord(b))
             elif zero("R"):
-                _run(prog, mem, 0, prog.dbl_end)
+                _run(prog.stages[:prog.dbl_end], mem)
             else:
                 for name, v in zip("XYZ", (one, one, nil)):
                     put(name, v)
+    return tuple(coord(n) for n in "XYZ")
+
+
+def simulate_ladder(prog: Program, entries, digits, p_inf: bool, c: int):
+    """The ladder kernel's control flow and program on Python integers, one
+    lane: W rounds (digits MSB first) of c doublings (infinity included, as
+    the twin) and one mixed addition of table entry digit - 1, skipped where
+    the digit is 0 or p is infinite. entries: the 2^c - 1 affine multiples
+    (x, y), each coordinate a tuple of ncomp Montgomery integers; returns
+    the Jacobian (X, Y, Z) in the same form."""
+    mem = [0] * prog.nslots
+    s = prog.slots
+
+    def coord(name):
+        return tuple(mem[s[name] + i] for i in range(prog.ncomp))
+
+    def put(name, value):
+        for i, v in enumerate(value):
+            mem[s[name] + i] = v
+
+    def zero(name):
+        return not any(coord(name))
+
+    one = (_ONE,) + (0,) * (prog.ncomp - 1)
+    nil = (0,) * prog.ncomp
+    for name, v in zip("XYZ", (one, one, nil)):
+        put(name, v)
+    for d in digits:
+        for _ in range(c):
+            _run(prog.stages[:prog.dbl_end], mem)
+        if d == 0 or p_inf:
+            continue
+        put("X2", entries[d - 1][0])
+        put("Y2", entries[d - 1][1])
+        if zero("Z"):  # infinity + Q = (x2, y2, 1)
+            for name, v in zip("XYZ", (coord("X2"), coord("Y2"), one)):
+                put(name, v)
+            continue
+        _run(prog.madd, mem)
+        if not zero("H"):
+            for a, b in zip("XYZ", ("X3", "Y3", "Z3")):
+                put(a, coord(b))
+        elif zero("R"):
+            _run(prog.stages[:prog.dbl_end], mem)  # P == Q: dbl(P)
+        else:
+            for name, v in zip("XYZ", (one, one, nil)):  # P == -Q
+                put(name, v)
     return tuple(coord(n) for n in "XYZ")
 
 
@@ -295,7 +373,7 @@ def simulate_join(prog: Program, sums, c: int):
 
 def _render_group(tag: str, prog: Program) -> str:
     ops, chains, stages = [], [0], [0]
-    for stage in prog.stages:
+    for stage in prog.stages + prog.madd:
         for chain in stage:
             ops.extend(chain)
             chains.append(len(ops))
@@ -306,8 +384,10 @@ def _render_group(tag: str, prog: Program) -> str:
         return "\n".join("    " + " ".join(items[i:i + per]) for i in range(0, len(items), per))
 
     return "\n".join([
-        f"// {tag}: {len(prog.stages)} stages ({prog.dbl_end} of the doubling), "
-        f"{len(chains) - 1} chains, {len(ops)} operations.",
+        f"// {tag}: {len(prog.stages) + len(prog.madd)} stages ({prog.dbl_end} of the doubling, "
+        f"{len(prog.stages) - prog.dbl_end} of the addition,",
+        f"// {len(prog.madd)} of the mixed addition), {len(chains) - 1} chains, "
+        f"{len(ops)} operations.",
         f"static __constant__ uint32_t kHorner{tag}Ops[{len(ops)}] = {{",
         rows([f"0x{k | d << 8 | a << 16 | b << 24:08x}u," for k, d, a, b in ops], 6),
         "};",
@@ -320,7 +400,8 @@ def _render_group(tag: str, prog: Program) -> str:
         f"struct HornerProg{tag} {{",
         f"  static constexpr int kComp = {prog.ncomp}, kWarps = {prog.warps}, "
         f"kSlots = {prog.nslots};",
-        f"  static constexpr int kDblEnd = {prog.dbl_end}, kAddEnd = {len(prog.stages)};",
+        f"  static constexpr int kDblEnd = {prog.dbl_end}, kAddEnd = {len(prog.stages)}, "
+        f"kMaddEnd = {len(prog.stages) + len(prog.madd)};",
         "  static constexpr int " + ", ".join(f"k{n} = {s[n]}" for n in NAMED) + ";",
         f"  __device__ static __forceinline__ uint32_t op(int i) {{ return kHorner{tag}Ops[i]; }}",
         f"  __device__ static __forceinline__ int chain(int i) {{ return kHorner{tag}Chains[i]; }}",
@@ -331,8 +412,9 @@ def _render_group(tag: str, prog: Program) -> str:
 
 def render() -> str:
     return "\n".join([
-        "// K4's program: dbl-2009-l and add-2007-bl as stages of chains of Fp",
-        "// operations on shared-memory slots of 16 words (see horner.cuh).",
+        "// The programs of K4 and of the digit ladder: dbl-2009-l, add-2007-bl and",
+        "// madd-2007-bl as stages of chains of Fp operations on shared-memory slots",
+        "// of 16 words (see horner.cuh, ladder.cuh).",
         "// Generated by `python -m kzg_tpu_torch.curve.horner_schedule --write`",
         "// from kzg_tpu_torch/curve/horner_schedule.py; do not edit.",
         "//",
@@ -357,7 +439,7 @@ def render() -> str:
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description="Print or write K4's program header.")
+    ap = argparse.ArgumentParser(description="Print or write the K4 / ladder program header.")
     ap.add_argument("--write", action="store_true", help=f"write {HEADER.name} in csrc/")
     args = ap.parse_args(argv)
     text = render()

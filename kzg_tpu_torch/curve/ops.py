@@ -252,22 +252,35 @@ class CurveOps:
         316-374`): digits (W, *batch) integers in [0, 2^c), digits[0] the
         MOST significant window.
 
-        Builds the 2^c - 1 multiples of p (one `add` per entry, stacked on a
-        table axis after the word axes), normalises the table with one
-        batched `to_affine`, then runs W rounds of c doublings and one
-        skip-masked `madd` with the table entry each lane's digit selects.
-        Digit 0 lanes read a clamped entry and are skipped; every multiple
-        of an infinite p is infinite, so those lanes are skipped too."""
+        Builds the 2^c - 1 multiples of p and normalises them to affine
+        (`ladder_table`), then runs W rounds of c doublings and one
+        skip-masked `madd` with the table entry each lane's digit selects
+        (`ladder_rounds`)."""
+        tx, ty, p_inf = self.ladder_table(p, c)
+        return self.ladder_rounds(tx, ty, p_inf, digits, c)
+
+    def ladder_table(self, p, c: int):
+        """The ladder's table: the multiples 1 .. 2^c - 1 of p (one `add` per
+        entry, stacked on a table axis after the word axes), normalised with
+        one batched `to_affine`. Returns (tx, ty) of shape (W[, 2], T, *batch)
+        and p's infinity mask."""
         if c < 1:
             raise ValueError("window must be >= 1")
         bd = self.f.bdim
-        t_count = (1 << c) - 1
         multiples = [p]
-        for _ in range(t_count - 1):
+        for _ in range((1 << c) - 2):
             multiples.append(self.add(multiples[-1], p))
         stacked = tuple(torch.stack([m[i] for m in multiples], dim=bd) for i in range(3))
-        tx, ty, _ = self.to_affine(stacked)  # (W[, 2], T, *batch)
-        p_inf = self.is_inf(p)
+        tx, ty, _ = self.to_affine(stacked)
+        return tx, ty, self.is_inf(p)
+
+    def ladder_rounds(self, tx, ty, p_inf, digits, c: int):
+        """The ladder's rounds on a `ladder_table`: from infinity, per window
+        (MSB first) c doublings, then one `madd` with entry digit - 1. Digit
+        0 lanes read a clamped entry and are skipped; every multiple of an
+        infinite p is infinite, so those lanes are skipped too."""
+        bd = self.f.bdim
+        t_count = (1 << c) - 1
         digits = digits.to(torch.int64)
 
         def sel(tab, d):
@@ -276,7 +289,7 @@ class CurveOps:
             idx = idx.expand(tab.shape[:bd] + (1,) + tab.shape[bd + 1:])
             return torch.gather(tab, bd, idx).squeeze(bd)
 
-        acc = self.infinity(digits.shape[1:], p[0].device)
+        acc = self.infinity(digits.shape[1:], tx.device)
         for w in range(digits.shape[0]):
             for _ in range(c):
                 acc = self.dbl(acc)

@@ -38,6 +38,16 @@ One thread an element, operands loaded once, the k dependent CIOS products
 in registers, one store; k is a launch argument and the loop is kept
 rolled. Bound: k (2 N^2 + N) multiply-adds an element; the bytes are three
 rows whatever k. Plain version: `mul_chain_plain`.
+
+`field_pow` (`csrc/field_kernels.cu`, counted as `field_pow`) is K1's
+Fermat chain in one launch: a^e for a Python-int exponent, square and
+multiply LSB first, as the chain of K1 launches that `pow_static` ran
+(`kzg_tpu/fields/limb.py:303-320` over `_run_elementwise`,
+`pallas_field.py:295`). One element a warp; each step's two products
+(acc * base and base^2) run side by side on the two half-warps, each spread
+over 16 lanes (`csrc/coop.cuh`). Bound: the latency of nbits dependent
+products. Plain version: `field_pow_plain`; `field_pow_chain` is the
+route it replaced (one K1 launch a step), kept for the bench.
 """
 
 import ctypes
@@ -306,6 +316,61 @@ def make_mul_chain(field, k: int):
     fn.__name__ = f"mul_chain_{k}"
     fn.__doc__ = f"acc = a; {k} times acc = acc * b (Montgomery) over {field.name} words."
     return fn
+
+
+# ---- K1's Fermat chain: a^e in one launch ---------------------------------------------
+
+_POW = kernels.REGISTRY["field_pow"]
+
+
+def _pow_loop(field, mul, a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e by square and multiply, LSB first, on the two-operand `mul`."""
+    acc = field.one(tuple(a.shape[1:]), a.device)
+    base = a
+    while e:
+        if e & 1:
+            acc = mul(acc, base)
+        e >>= 1
+        if e:
+            base = mul(base, base)
+    return acc
+
+
+def field_pow_plain(field, a: torch.Tensor, e: int) -> torch.Tensor:
+    """Plain version of `field_pow` on any device: the square-and-multiply
+    loop on the plain Montgomery product."""
+    return _pow_loop(field, lambda x, y: binary_plain(field, MUL, x, y), a, e)
+
+
+def field_pow_chain(field, a: torch.Tensor, e: int) -> torch.Tensor:
+    """The same loop with every product a K1 launch on a CUDA tensor: the
+    chain `field_pow` replaced (`bench.ladder` times the two)."""
+    return _pow_loop(field, lambda x, y: binary(field, MUL, x, y), a, e)
+
+
+def field_pow(field, a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e (Montgomery words, (W, *batch)) for a Python-int exponent
+    0 <= e < 2^(32 W). The plain version for CPU tensors; for CUDA tensors
+    one launch of the chain kernel, whatever e."""
+    if e < 0 or e.bit_length() > 32 * field.W:
+        raise ValueError(f"exponent must be in [0, 2^{32 * field.W})")
+    if _device_kind(a) == "cpu":
+        return field_pow_plain(field, a, e)
+    _check_operand(field, a, a.device)
+    a = a.contiguous()
+    out = torch.empty_like(a)
+    n = a.numel() // field.W
+    if n == 0:
+        return out
+    e_words = np.frombuffer(e.to_bytes(4 * field.W, "little"), dtype="<u4").copy()
+    rc = kernels.library().kzg_field_pow(
+        field.kernel_id, out.data_ptr(), a.data_ptr(),
+        e_words.ctypes.data_as(ctypes.c_void_p), e.bit_length(), n,
+        kernels.stream_handle(a.device),
+    )
+    kernels.check_status(rc, f"{field.name} field_pow ({e.bit_length()} bits)")
+    _POW.launches += 1
+    return out
 
 
 # ---- K5: one NTT butterfly stage ----------------------------------------------------

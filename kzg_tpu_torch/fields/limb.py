@@ -14,10 +14,11 @@ radix (2^256 / 2^384). So both packages hold the same integers, and
 
 Ring ops (`add`, `sub`, `mul`, `sqr`, `mul_const`, `to_mont`, `from_mont`)
 go through kernel K1 on CUDA tensors and through its plain PyTorch twin on
-CPU tensors (`fields/cuda_field.py`). Everything else here (`pow_static`,
-`batch_inv`, the prefix scans, `sum_last`) is plain tensor code whose
-field math is those ring ops. `as_plain()` gives a twin of the field whose
-ring ops are the plain version on every device (the reference that
+CPU tensors (`fields/cuda_field.py`), and so does `pow_static` (with `inv`)
+through K1's Fermat chain, one launch a power (`cuda_field.field_pow`).
+Everything else here (`batch_inv`, the prefix scans, `sum_last`) is plain
+tensor code whose field math is those ops. `as_plain()` gives a twin of the
+field whose ops are the plain versions on every device (the reference that
 `chip_smoke.py` holds the kernels against on the card).
 """
 
@@ -173,16 +174,11 @@ class LimbField:
     # ---- powers and inverses -------------------------------------------------
 
     def pow_static(self, a, e: int):
-        """a^e for a Python-int exponent (square and multiply, LSB first)."""
-        acc = self.one(a.shape[1:], a.device)
-        base = a
-        while e:
-            if e & 1:
-                acc = self.mul(acc, base)
-            e >>= 1
-            if e:
-                base = self.sqr(base)
-        return acc
+        """a^e for a Python-int exponent (square and multiply, LSB first):
+        one launch of K1's chain kernel on a CUDA tensor, its plain loop on a
+        CPU tensor or on the plain field."""
+        fn = cuda_field.field_pow_plain if self.plain else cuda_field.field_pow
+        return fn(self, a, e)
 
     def inv(self, a):
         """Fermat inverse a^(m-2); inv(0) = 0 by convention."""

@@ -29,8 +29,9 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "kzg_tpu_torch"
 SOURCES = ("field_kernels.cu", "point_kernels.cu", "ntt_kernels.cu",
            "point_g2_kernels.cu", "madd_g2_kernels.cu", "madd_multi_g2_kernels.cu",
-           "msm_g2_kernels.cu", "horner_g2_kernels.cu", "mxu_kernels.cu")
-HEADERS = ("field.cuh", "point.cuh", "coop.cuh", "horner.cuh", "horner_schedule.cuh")
+           "msm_g2_kernels.cu", "horner_g2_kernels.cu", "mxu_kernels.cu", "ladder_kernels.cu")
+HEADERS = ("field.cuh", "point.cuh", "coop.cuh", "horner.cuh", "horner_schedule.cuh",
+           "ladder.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -92,6 +93,14 @@ REGISTRY = {
         # the reduce epilogue of the matmul-DFT NTT
         Kernel("mxu_reduce", "kzg_tpu_torch/csrc/mxu_kernels.cu",
                "kzg_tpu/ntt/mxu.py:135"),
+        # pow_static's chain of elementwise products (LimbField.inv), one launch
+        Kernel("field_pow", "kzg_tpu_torch/csrc/field_kernels.cu",
+               "kzg_tpu/fields/pallas_field.py:295"),
+        # the digit ladder's rounds of _PointKernels.dbl and .madd, one launch
+        Kernel("g1_ladder", "kzg_tpu_torch/csrc/ladder_kernels.cu",
+               "kzg_tpu/curve/pallas_ops.py:707"),
+        Kernel("g2_ladder", "kzg_tpu_torch/csrc/ladder_kernels.cu",
+               "kzg_tpu/curve/pallas_ops.py:707"),
     )
 }
 
@@ -203,6 +212,11 @@ _SIGNATURES = {
     "kzg_field_mul_chain_coop": (_I, _P, _P, _P, _I, _N, _P),
     # (out (8, n) words, digit sums (64, n) int32, n, stream)
     "kzg_mxu_reduce": (_P, _P, _N, _P),
+    # (field, out, a, exponent words on the host, exponent bits, n, stream)
+    "kzg_field_pow": (_I, _P, _P, _P, _I, _N, _P),
+    # (ox, oy, oz, table x, table y, digits, p_inf bytes, windows, c, entries, lanes, stream)
+    "kzg_g1_ladder": (_P,) * 7 + (_I, _I, _I, _N, _P),
+    "kzg_g2_ladder": (_P,) * 7 + (_I, _I, _I, _N, _P),
 }
 
 

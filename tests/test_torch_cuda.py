@@ -1,6 +1,8 @@
 """Kernels K1-K9 (G1 and G2) on the card against their plain PyTorch twins,
 exact, K3 and the bucket loop also on skewed digits, K4 at the window
-join's edge cases, K8 also in its cooperative mode; the matmul-DFT NTT and
+join's edge cases, K8 also in its cooperative mode, K1's Fermat chain
+(`field_pow`) and the digit ladder (G1 and G2, also at its edge cases);
+the matmul-DFT NTT and
 device setup on the card; the default device; and no fallback when the
 kernel build fails.
 
@@ -18,6 +20,7 @@ import torch
 
 from kzg_tpu_torch import config, kernels, native
 from kzg_tpu_torch.bench import horner as hbench
+from kzg_tpu_torch.bench import ladder as lbench
 from kzg_tpu_torch.constants import P, R
 from kzg_tpu_torch.curve import (
     G1, G2, cuda_ops, g1_from_device, g2_from_device, g2_generator_device,
@@ -306,6 +309,66 @@ def test_k4_edge_cases(dev, group, case):
     assert _equal(got, cuda_ops.horner_join_plain(s_all, c))
 
 
+@pytest.mark.parametrize("n", [1, 2, 33, 4096])
+@pytest.mark.parametrize("field,mod", [(FR, R), (FP, P)], ids=["Fr", "Fp"])
+def test_field_pow(dev, field, mod, n):
+    """K1's Fermat chain against its plain version, e = m - 2 (an inverse,
+    0 -> 0) and a random e; one launch a power, also through inv."""
+    xs = _ints(41 + n, mod, max(n, 3))[:n]
+    a = torch.from_numpy(field.encode(xs)).to(dev)
+    e_rand = int.from_bytes(np.random.default_rng(n).bytes(48), "little") % mod
+    for e in (mod - 2, e_rand):
+        before = kernels.launch_counts()["field_pow"]
+        got = cuda_field.field_pow(field, a, e)
+        assert kernels.launch_counts()["field_pow"] == before + 1
+        assert _equal(got, cuda_field.field_pow_plain(field, a, e))
+        assert field.decode(got[:, :3]) == [pow(x, e, mod) for x in xs[:3]]
+    before = kernels.launch_counts()
+    assert field.decode(field.inv(a)[:, :3]) == [pow(x, -1, mod) if x else 0 for x in xs[:3]]
+    after = kernels.launch_counts()
+    assert after["field_pow"] == before["field_pow"] + 1
+    assert after["field_elementwise"] == before["field_elementwise"] + 1  # the decode
+
+
+LADDER_WINDOWS = {1: 12, 4: 6, 8: 3}
+
+
+@pytest.mark.parametrize("c", sorted(LADDER_WINDOWS))
+@pytest.mark.parametrize("lanes", [1, 7, 2048])
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_ladder(dev, group, lanes, c):
+    """The ladder kernel against its twin on random tables and digits, p
+    infinite on lane 1 and all-zero digits on lane 2 where there are such
+    lanes; one launch a ladder."""
+    gen = torch.Generator(device=dev).manual_seed(lanes * 16 + c)
+    tx, ty, p_inf, digits = lbench.random_ladder(group, lanes, c, LADDER_WINDOWS[c], gen)
+    if lanes > 2:
+        p_inf[1] = True
+        digits[:, 2] = 0
+    name = f"{group}_ladder"
+    before = kernels.launch_counts()[name]
+    got = cuda_ops.ladder(tx, ty, p_inf, digits, c)
+    assert kernels.launch_counts()[name] == before + 1
+    assert _equal(got, cuda_ops.ladder_plain(tx, ty, p_inf, digits, c))
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_ladder_edge_cases(dev, group):
+    """P == Q, P == -Q, all-zero digits, p infinite, infinity + Q: the
+    kernel equals its twin, and the oracle's points."""
+    tx, ty, p_inf, digits, c, want = lbench.edge_case(group, dev)
+    from_device = g1_from_device if group == "g1" else g2_from_device
+    got = cuda_ops.ladder(tx, ty, p_inf, digits, c)
+    assert _equal(got, cuda_ops.ladder_plain(tx, ty, p_inf, digits, c))
+    assert from_device(got) == want
+    # the kernel pairs lanes 2k and 2k + 1 in a block: the lanes reversed
+    # meet each other's cases (and the odd lane out) in other pairs
+    flip = [t.flip(-1).contiguous() for t in (tx, ty, p_inf, digits)]
+    got = cuda_ops.ladder(*flip, c)
+    assert _equal(got, cuda_ops.ladder_plain(*flip, c))
+    assert from_device(got) == want[::-1]
+
+
 def test_k9_mxu_reduce_and_product(dev):
     """K9 against its plain version on a real product's digit sums (a lane
     count that is no multiple of 8, so the product pads) and on the largest
@@ -390,6 +453,12 @@ def test_no_fallback_when_the_build_fails(dev, monkeypatch):
         cuda_ops.g2_dbl(p)
     with pytest.raises(kernels.KernelError):
         cuda_field.mul_chain(FR, 3, x, x)
+    with pytest.raises(kernels.KernelError):
+        cuda_field.field_pow(FR, x, FR.modulus - 2)
+    tx, ty, p_inf, digits = lbench.random_ladder(
+        "g1", 4, 2, 3, torch.Generator(device=dev).manual_seed(0))
+    with pytest.raises(kernels.KernelError):
+        cuda_ops.ladder(tx, ty, p_inf, digits, 2)
     with pytest.raises(kernels.KernelError):
         mxu.mxu_reduce(torch.zeros((mxu.OUT_DIGITS, 8), dtype=torch.int32, device=dev))
     skip = torch.zeros(4, dtype=torch.bool, device=dev)

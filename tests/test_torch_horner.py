@@ -10,8 +10,9 @@
     branch) and to its negation (P == -Q), W = 1, c = 1, and c = 16 at
     W = 2;
   * the cooperative field arithmetic of `csrc/coop.cuh` (16 lanes a
-    product, carries resolved by warp votes), emulated lane by lane,
-    against Python integers on edge and random operands;
+    product, carries resolved by warp votes), emulated lane by lane
+    (`tests/coop_model.py`), against Python integers on edge and random
+    operands;
   * the committed header `csrc/horner_schedule.cuh` is the generator's
     output, and the program's stages are what the kernel's design counts.
 
@@ -30,6 +31,8 @@ from kzg_tpu_torch.bench import horner as hbench
 from kzg_tpu_torch.constants import P, R
 from kzg_tpu_torch.curve import cuda_ops, horner_schedule
 from kzg_tpu_torch.fields.limb import unpack16
+
+from coop_model import LANES, Coop, value, words
 
 MASK32 = (1 << 32) - 1
 
@@ -91,77 +94,11 @@ def test_horner_join_edge_cases_match_jax(case):
 
 # ---- coop.cuh, lane by lane ------------------------------------------------------------
 
-LANES = 16
-
-
-def _carry(gen, prop):
-    """coop_carry: the incoming carry of every lane and the one out of lane 15."""
-    g = sum(1 << j for j in range(LANES) if gen[j])
-    a = g | sum(1 << j for j in range(LANES) if prop[j])
-    s = a + g
-    return [((s ^ a ^ g) >> j) & 1 for j in range(LANES)], s >> 16
-
-
-class _Coop:
-    """The functions of coop.cuh over 16 emulated lanes (lists of words)."""
-
-    def __init__(self, mod, nwords):
-        self.n = nwords
-        self.p = [(mod >> (32 * j)) & MASK32 if j < nwords else 0 for j in range(LANES)]
-        self.pm = [0] + self.p[:-1]
-        self.nprime = (-pow(mod, -1, 1 << 32)) % (1 << 32)
-
-    def reduce(self, w):
-        b, below = _carry([w[j] < self.p[j] for j in range(LANES)],
-                          [w[j] == self.p[j] for j in range(LANES)])
-        return w if below else [(w[j] - self.p[j] - b[j]) & MASK32 for j in range(LANES)]
-
-    def add(self, a, b):
-        s = [(a[j] + b[j]) & MASK32 for j in range(LANES)]
-        c, _ = _carry([s[j] < a[j] for j in range(LANES)], [s[j] == MASK32 for j in range(LANES)])
-        return self.reduce([(s[j] + c[j]) & MASK32 for j in range(LANES)])
-
-    def sub(self, a, b):
-        bw, neg = _carry([a[j] < b[j] for j in range(LANES)], [a[j] == b[j] for j in range(LANES)])
-        r = [(a[j] - b[j] - bw[j]) & MASK32 for j in range(LANES)]
-        if neg:
-            s = [(r[j] + self.p[j]) & MASK32 for j in range(LANES)]
-            c, _ = _carry([s[j] < r[j] for j in range(LANES)],
-                          [s[j] == MASK32 for j in range(LANES)])
-            r = [(s[j] + c[j]) & MASK32 for j in range(LANES)]
-        return r
-
-    def mul(self, a, b):
-        am = [0] + a[:-1]
-        s = [0] * LANES
-        for i in range(self.n):
-            s = [s[j] + ((a[j] * b[i]) & MASK32) + ((am[j] * b[i]) >> 32) for j in range(LANES)]
-            m = ((s[0] & MASK32) * self.nprime) & MASK32  # lane 0's, shuffled to all
-            s = [s[j] + ((m * self.p[j]) & MASK32) + ((m * self.pm[j]) >> 32)
-                 for j in range(LANES)]
-            assert s[0] & MASK32 == 0 and max(s) < 1 << 64
-            s = [(s[j + 1] if j < LANES - 1 else 0) + (s[0] >> 32 if j == 0 else 0)
-                 for j in range(LANES)]
-        hin = [0] + [v >> 32 for v in s[:-1]]
-        u = [(s[j] & MASK32) + hin[j] for j in range(LANES)]
-        w = [v & MASK32 for v in u]
-        c, _ = _carry([v >> 32 != 0 for v in u], [v == MASK32 for v in w])
-        return self.reduce([(w[j] + c[j]) & MASK32 for j in range(LANES)])
-
-
-def _words(x):
-    return [(x >> (32 * j)) & MASK32 for j in range(LANES)]
-
-
-def _value(ws):
-    return sum(v << (32 * j) for j, v in enumerate(ws))
-
-
 @pytest.mark.parametrize("op", ["mul", "add", "sub"])
 @pytest.mark.parametrize("field", ["Fr", "Fp"])
 def test_coop_arithmetic_emulated(field, op):
     mod, nwords = (R, 8) if field == "Fr" else (P, 12)
-    coop = _Coop(mod, nwords)
+    coop = Coop(mod, nwords)
     rs = np.random.default_rng(7 + nwords)
     edge = [0, 1, 2, mod - 1, mod - 2, (1 << 32) - 1, (1 << (32 * (nwords - 1))) - 1,
             mod >> 1, (mod + 1) >> 1]
@@ -169,9 +106,9 @@ def test_coop_arithmetic_emulated(field, op):
     r_inv = pow(1 << (32 * nwords), -1, mod)
     for x in vals:
         for y in vals[:12] + vals[-6:]:
-            got = getattr(coop, op)(_words(x), _words(y))
+            got = getattr(coop, op)(words(x), words(y))
             want = {"mul": x * y * r_inv, "add": x + y, "sub": x - y}[op] % mod
-            assert _value(got) == want and got[nwords:] == [0] * (LANES - nwords), (x, y)
+            assert value(got) == want and got[nwords:] == [0] * (LANES - nwords), (x, y)
 
 
 # ---- the program and its header -------------------------------------------------------
