@@ -11,7 +11,12 @@ non-zero before the result line:
                 main-path shapes, exact equality (all of it is integer math):
                 K1 field ops at 2^15 (Fr and Fp, edges 0, 1, p-1) and the
                 standalone make_mul / make_add / make_sub entries, K2 add/dbl
-                on 2^12 points (infinity, P+P, P+(-P) lanes), K6 madd on 2^12
+                in both modes (narrow: two points a block on 16-lane
+                products; wide: one thread a point) at 1, 3 and 2^12 points
+                (infinity, P+P, P+(-P) lanes), at each kernel's crossover
+                (the most points its narrow mode takes on this card) and at
+                2^20 (random, `bench.pointwise.edge_pairs` planted first:
+                every pair of cases in both halves of a block), K6 madd on 2^12
                 and 2^11 lanes (skip, infinite, same and opposite lanes
                 planted), K7 madd_multi at the shape a 2^12-point MSM gives
                 it (16 steps over the sub-run lanes of 37 x 128 buckets; neg
@@ -57,7 +62,8 @@ non-zero before the result line:
                 native engine's MSM, witness, verify, tampered y rejected;
   6. counts   - kernel launch counts of phases 4-5 (reset just before
                 phase 4): K1, field_pow, K2, K3, K4 and K7 (the witness's MSM
-                has 512 buckets a window) must each be > 0; phase 5 also
+                has 512 buckets a window) must each be > 0, and K2 add and
+                dbl must have taken the narrow mode; phase 5 also
                 shows the 2^15 witness inverting with one field_pow launch
                 and verify_eval converting with two, and fewer K1 launches
                 than one Fermat chain of K1 products took (418 Fr, 609 Fp);
@@ -70,7 +76,8 @@ non-zero before the result line:
                 seeded numerator f - r divided by a 16-point Z, q Z ==
                 numerator checked at two random points with host ints;
  10. counts   - launch counts of phases 7-9 (reset just before phase 7),
-                every kernel of that path must be > 0;
+                every kernel of that path must be > 0, G2 add and dbl in
+                the narrow mode among them;
       (the Lagrange build timed group by group, before the next reset:
       one ladder launch a ladder, no stand-alone dbl or madd, one
       field_pow an affine conversion);
@@ -108,7 +115,7 @@ non-zero before the result line:
                 route at 2^12 equal to the trusted one in `lg` and `lh`;
  18. counts   - launch counts of phases 15-17 (reset just before phase 15):
                 K8, K9 and every kernel device setup and the 2^20 path touch
-                must be > 0;
+                must be > 0, G1 add in both modes;
  19. K3 2^20  - K3 alone at the 2^20 witness's shape (2^20 - 1 points,
                 c = 14), timed with its bound, its twin on the top window;
  20. Lagrange - the trusted Lagrange SRS at 2^15 (the ceremony's largest
@@ -123,11 +130,18 @@ K3 and K7 run over sub-runs of at most L points of each bucket's run
 number of sub-runs, the longest one, the most sub-runs of one bucket and,
 for K7, its launches an MSM.
 Setups other than phase 5's take the default engine, the device route.
-With --profile, the evaluation-form path is then profiled phase by phase
-(wall, launches, device time by kernel, idle share) and the table written
-to JSON (default build/profile_eval.json).
-The last lines are the kernel report (launches summed over the five
-counted runs; K4's rows also carry `chain_ms`, its critical path in
+With --profile, the evaluation-form path and the batched verify of phase 8
+are then profiled phase by phase (wall, launches, device time by kernel,
+idle share) and the table written to JSON (default
+build/profile_eval.json).
+Every counted run prints K2's launches by mode. The last lines are the
+kernel report (launches summed over the five counted runs; K2 has a row a
+mode, `g1_add_narrow`, `g1_add_wide` and so on, each with its launches in
+that mode, its times at 2^12 points (narrow) or 2^20 (wide), every width
+it was held and timed at, `chain_ms` (the narrow mode's critical path of
+16-lane products, the wide mode's serial one-thread chain, at the measured
+latencies) and `throughput_ms` (all the points' products at the measured
+rate); K4's rows also carry `chain_ms`, its critical path in
 dependent products at W = 26, c = 10 times the 16-lane Fp product's
 latency; the ladders' `chain_ms` is a lane's critical path at c = 4,
 W = 64 at that latency and `throughput_ms` all the lanes' Fp products at
@@ -225,6 +239,18 @@ def cuda_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def once_ms(fn):
+    """(result, milliseconds) of one call of fn on the card (CUDA events)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def median3(fn):
@@ -380,6 +406,7 @@ def main(argv=None) -> int:
     from kzg_tpu_torch.bench import horner as hbench
     from kzg_tpu_torch.bench import ladder as lbench
     from kzg_tpu_torch.bench import mul_peak, peaks
+    from kzg_tpu_torch.bench import pointwise as pwbench
     from kzg_tpu_torch.curve import horner_schedule
     from kzg_tpu_torch.config import configure, get_config
     from kzg_tpu_torch.constants import P, R
@@ -400,6 +427,7 @@ def main(argv=None) -> int:
     from kzg_tpu_torch.poly import Polynomial, lagrange_interpolation, vanishing_poly
 
     dev = torch.device("cuda", 0)
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     report = {}
 
     # ---- 1. device -----------------------------------------------------------------
@@ -461,6 +489,63 @@ def main(argv=None) -> int:
               f"{group} group iNTT 2^{exp}: one field_pow an affine conversion, "
               f"{got.get('field_elementwise', 0)} K1 launches (the Fp chains alone were "
               f"{(exp + 2) * 609})")
+
+    def check_k2(group, curve, add_fn, dbl_fn, add_plain_fn, dbl_plain_fn, p, q):
+        """K2 add and dbl of one group in both modes against the plain twin:
+        at 1, 3 and 2^12 points (p, q: lane 0 P at infinity, 1 Q at
+        infinity, 2 both, 3 Q = P under another Z, 4 Q = -P, 5 Q = P word
+        for word), at the kernel's crossover (the most points its narrow
+        mode takes on this card) and at 2^20 (random points, the edge pairs
+        of `bench.pointwise` first: every pair of cases in both halves of a
+        narrow block). Each width timed in both modes: the kernel's device
+        time (CUDA events around calls the card runs back to back, the
+        stream held while the host enqueues them: `peaks.held_ms`) and a
+        call's time (events around a run of calls as the host makes them:
+        the host's launch, where it is the longer); the twin once.
+        The report's row of a mode takes its times at 2^12 (narrow) or 2^20
+        (wide)."""
+        g2 = int(group == "g2")
+        edges = pwbench.edge_pairs(group, dev)
+        for op, fn, plain_fn, moved in (("add", add_fn, add_plain_fn, 9),
+                                        ("dbl", dbl_fn, dbl_plain_fn, 6)):
+            kname = f"{group}_{op}"
+            top = cuda_ops.NARROW_WAVES[kname] * 2 * sm_count * cuda_ops.narrow_min_blocks(
+                1 + g2)
+            modes = {m: {"widths": [], "max_abs_err": 0} for m in cuda_ops.K2_MODES}
+            gen_k2 = torch.Generator(device=dev).manual_seed(SEED + 20 + g2)
+            for w in (1, 3, N_POINT, top, 1 << 20):
+                if w <= N_POINT:
+                    a, b = (tuple(t[..., :w].contiguous() for t in pt) for pt in (p, q))
+                else:
+                    a, b = pwbench.planted(group, w, gen_k2, edges[:2])
+                args = (a, b) if op == "add" else (a,)
+                want, plain_ms = once_ms(lambda: plain_fn(*args))
+                iters = 20 if w <= 1 << 14 else 3
+                for m, row in modes.items():
+                    err = max_abs_diff(fn(*args, mode=m), want)
+                    row["max_abs_err"] = max(row["max_abs_err"], err)
+                    call_ms = cuda_ms(lambda: fn(*args, mode=m), iters)
+                    row["widths"].append({
+                        "points": w, "ms": peaks.held_ms(lambda: fn(*args, mode=m), iters),
+                        "call_ms": call_ms, "plain_ms": plain_ms,
+                        "bound_ms": point_bound(op, g2, w, moved)[0]})
+                    check(err == 0, f"K2 {kname} {m} at {w} points equals plain")
+                if op == "add" and w == N_POINT:
+                    out = fn(*args)
+                    check(bool(curve.is_inf(out)[4]) and not bool(curve.is_inf(out)[3]),
+                          f"K2 {kname}: P + (-P) is infinity, P + P is not")
+                del a, b, args, want
+            for m, row in modes.items():
+                ref = next(r for r in row["widths"]
+                           if r["points"] == (N_POINT if m == "narrow" else 1 << 20))
+                row.update(ms=ref["ms"], plain_ms=ref["plain_ms"], points=ref["points"],
+                           bound=point_bound(op, g2, ref["points"], moved))
+                log(f"  K2 {kname} {m}, device ms (a call's ms, twin ms, bound ms): " + ", ".join(
+                    f"{r['points']} points {r['ms']:.4f} ({r['call_ms']:.4f}, "
+                    f"{r['plain_ms']:.2f}, {r['bound_ms']:.6f})" for r in row["widths"])
+                    + f" [{card}]")
+            kinfo[kname]["modes"] = modes
+            kinfo[kname]["max_abs_err"] = max(r["max_abs_err"] for r in modes.values())
 
     # ---- 3. kernels against their plain twins ---------------------------------------------
     with phase("kernels vs plain"):
@@ -533,28 +618,8 @@ def main(argv=None) -> int:
         q[2][:, 4] = p[2][:, 4]
         for i in range(3):
             q[i][:, 5] = p[i][:, 5]
-        got = cuda_ops.add(p, q)
-        want = cuda_ops.add_plain(p, q)
-        err = max_abs_diff(got, want)
-        check(err == 0, "K2 add 2^12 (inf, P+P, P-P lanes) equals plain")
-        check(bool(G1.is_inf(got)[4]) and not bool(G1.is_inf(got)[3]),
-              "K2 add: P + (-P) is infinity, P + P is not")
-        kinfo["g1_add"].update(
-            max_abs_err=err,
-            ms=cuda_ms(lambda: cuda_ops.add(p, q), 20),
-            plain_ms=cuda_ms(lambda: cuda_ops.add_plain(p, q), 2),
-            bound=point_bound("add", 0, n, 9),
-        )
-        got = cuda_ops.dbl(p)
-        want = cuda_ops.dbl_plain(p)
-        err = max_abs_diff(got, want)
-        check(err == 0, "K2 dbl 2^12 equals plain")
-        kinfo["g1_dbl"].update(
-            max_abs_err=err,
-            ms=cuda_ms(lambda: cuda_ops.dbl(p), 20),
-            plain_ms=cuda_ms(lambda: cuda_ops.dbl_plain(p), 2),
-            bound=point_bound("dbl", 0, n, 6),
-        )
+        check_k2("g1", G1, cuda_ops.add, cuda_ops.dbl, cuda_ops.add_plain, cuda_ops.dbl_plain,
+                 p, q)
 
         def madd_case(curve, kname, kernel_fn, plain_fn, p_jac, qx, qy, jac_of, g2):
             """K6 on n lanes: lane 0 p infinite, 3 p == q under another Z,
@@ -888,27 +953,8 @@ def main(argv=None) -> int:
         q2[2][..., 4] = p2[2][..., 4]
         for i in range(3):
             q2[i][..., 5] = p2[i][..., 5]
-        got = cuda_ops.g2_add(p2, q2)
-        want = cuda_ops.g2_add_plain(p2, q2)
-        err = max_abs_diff(got, want)
-        check(err == 0, "G2 add 2^12 (inf, P+P, P-P lanes) equals plain")
-        check(bool(G2.is_inf(got)[4]) and not bool(G2.is_inf(got)[3]),
-              "G2 add: P + (-P) is infinity, P + P is not")
-        kinfo["g2_add"].update(
-            max_abs_err=err,
-            ms=cuda_ms(lambda: cuda_ops.g2_add(p2, q2), 10),
-            plain_ms=cuda_ms(lambda: cuda_ops.g2_add_plain(p2, q2), 1),
-            bound=point_bound("add", 1, n, 9),
-        )
-        got = cuda_ops.g2_dbl(p2)
-        err = max_abs_diff(got, cuda_ops.g2_dbl_plain(p2))
-        check(err == 0, "G2 dbl 2^12 equals plain")
-        kinfo["g2_dbl"].update(
-            max_abs_err=err,
-            ms=cuda_ms(lambda: cuda_ops.g2_dbl(p2), 10),
-            plain_ms=cuda_ms(lambda: cuda_ops.g2_dbl_plain(p2), 1),
-            bound=point_bound("dbl", 1, n, 6),
-        )
+        check_k2("g2", G2, cuda_ops.g2_add, cuda_ops.g2_dbl, cuda_ops.g2_add_plain,
+                 cuda_ops.g2_dbl_plain, p2, q2)
         madd_case(G2, "g2_madd", cuda_ops.g2_madd, cuda_ops.g2_madd_plain, p2,
                   hx[..., n:2 * n].contiguous(), hy[..., n:2 * n].contiguous(),
                   lambda x, y: jacobian2(x, y, gen2), 1)
@@ -1123,8 +1169,9 @@ def main(argv=None) -> int:
         del y20, planes20, x8, x8_rows, y_top, y15
 
         for k, v in kinfo.items():
-            log(f"  {k}: kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.2f} ms, bound "
-                f"{v['bound'][0]:.6f} ms ({v['bound'][1]}) [{card}]")
+            if "modes" not in v:  # K2 logged its modes above
+                log(f"  {k}: kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.2f} ms, bound "
+                    f"{v['bound'][0]:.6f} ms ({v['bound'][1]}) [{card}]")
 
     # ---- 4-5. the main path, counted ---------------------------------------------------------
     kernels.reset_launches()
@@ -1206,12 +1253,17 @@ def main(argv=None) -> int:
 
     # ---- 6. launch counts of the single-opening path ---------------------------------------------
     with phase("launch counts 4-5"):
-        counts_single = kernels.launch_counts()
+        counts_single, modes_single = kernels.launch_counts(), kernels.mode_counts()
         log(f"  {counts_single}")
+        log(f"  K2 by mode: {modes_single}")
         for k in ("field_elementwise", "field_pow", "g1_add", "g1_dbl", "g1_bucket_accumulate",
                   "g1_madd_multi", "g1_horner_join"):
             check(counts_single[k] > 0,
                   f"{k} launched {counts_single[k]} times on the single-opening path")
+        for k in ("g1_add", "g1_dbl"):  # the reductions' last levels hold a few points
+            check(modes_single[k]["narrow"] > 0,
+                  f"{k} took its narrow mode {modes_single[k]['narrow']} times on the "
+                  "single-opening path")
 
     # ---- 7-9. the batched opening, counted --------------------------------------------------------
     kernels.reset_launches()
@@ -1267,6 +1319,8 @@ def main(argv=None) -> int:
         log(f"  batched 2^15, k = {K_BATCH}: witness {bwitness_s:.4f} s "
             f"(runs {', '.join(f'{t:.4f}' for t in times)}), verify {bverify_s:.4f} s [{card}]")
         report.update(batched_witness_s=bwitness_s, batched_verify_s=bverify_s)
+        batched_verify = (lambda v=verifier, c=commitment, w=bw, x=list(xs):
+                          v.verify_eval_batched(c, w, x))  # profiled with --profile
 
     with phase(f"coset division 2^{EXP_COSET}"):
         n = 1 << EXP_COSET
@@ -1295,8 +1349,13 @@ def main(argv=None) -> int:
 
     # ---- 10. launch counts of the batched path ---------------------------------------------------
     with phase("launch counts 7-9"):
-        counts_batched = kernels.launch_counts()
+        counts_batched, modes_batched = kernels.launch_counts(), kernels.mode_counts()
         log(f"  {counts_batched}")
+        log(f"  K2 by mode: {modes_batched}")
+        for k in ("g2_add", "g2_dbl"):  # the batched verify's double-and-add on a few lanes
+            check(modes_batched[k]["narrow"] > 0,
+                  f"{k} took its narrow mode {modes_batched[k]['narrow']} times on the "
+                  "batched path")
         for k in ("field_elementwise", "g1_add", "g1_dbl", "g1_bucket_accumulate",
                   "g1_madd_multi", "g1_horner_join", "ntt_stage", "g2_add", "g2_dbl"):
             check(counts_batched[k] > 0,
@@ -1455,8 +1514,9 @@ def main(argv=None) -> int:
 
     # ---- 14. launch counts of the evaluation-form path ---------------------------------------
     with phase("launch counts 11-13"):
-        counts_eval = kernels.launch_counts()
+        counts_eval, modes_eval = kernels.launch_counts(), kernels.mode_counts()
         log(f"  {counts_eval}")
+        log(f"  K2 by mode: {modes_eval}")
         for k, n_launch in counts_eval.items():
             # a 2^12-point G1 MSM takes the bucket loop on K7, so this run
             # gives the G1 instantiation of K3 nothing; K8 and K9 belong to
@@ -1601,12 +1661,16 @@ def main(argv=None) -> int:
 
     # ---- 18. launch counts of the probe, matmul-DFT and 2^20 paths -----------------------------
     with phase("launch counts 15-17"):
-        counts_big = kernels.launch_counts()
+        counts_big, modes_big = kernels.launch_counts(), kernels.mode_counts()
         log(f"  {counts_big}")
+        log(f"  K2 by mode: {modes_big}")
         for k in ("mul_chain", "mxu_reduce", "field_elementwise", "ntt_stage", "g1_add", "g1_dbl",
                   "g2_add", "g1_bucket_accumulate", "g1_horner_join"):
             check(counts_big[k] > 0, f"{k} launched {counts_big[k]} times on the probe, "
                   "matmul-DFT, device-setup and 2^20 path")
+        check(modes_big["g1_add"]["wide"] > 0 and modes_big["g1_add"]["narrow"] > 0,
+              f"g1_add took both modes on the 2^20 path ({modes_big['g1_add']}: setup's "
+              "rounds at 2^20 points wide, the reductions' last levels narrow)")
 
     # ---- 19. K3 alone at the 2^20 witness's shape, outside the counted run ---------------------
     with phase("K3 at the 2^20 witness shape"):
@@ -1656,7 +1720,7 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             report[f"lagrange_2e{EXP_LAGRANGE}_{curve.name.lower()}_s"] = time.perf_counter() - t0
             check_group_launches(curve.name.lower(), before, EXP_LAGRANGE)
-        counts_lag = kernels.launch_counts()
+        counts_lag, modes_lag = kernels.launch_counts(), kernels.mode_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ref15 = compute_lagrange_basis_from_secret(SEED, EXP_LAGRANGE, device=dev)
@@ -1677,14 +1741,18 @@ def main(argv=None) -> int:
 
     with phase(f"launch counts 20"):
         log(f"  {counts_lag}")
+        log(f"  K2 by mode: {modes_lag}")
         for k in ("g1_ladder", "g2_ladder", "field_pow", "field_elementwise", "g1_add", "g2_add"):
             check(counts_lag[k] > 0, f"{k} launched {counts_lag[k]} times on the trusted "
                   f"Lagrange SRS at 2^{EXP_LAGRANGE}")
         counts = {k: counts_single[k] + counts_batched[k] + counts_eval[k] + counts_big[k]
                   + counts_lag[k] for k in counts_eval}
+        mode_totals = {k: {m: sum(run[k][m] for run in (modes_single, modes_batched, modes_eval,
+                                                         modes_big, modes_lag))
+                           for m in cuda_ops.K2_MODES} for k in modes_eval}
 
     if args.profile:
-        with phase(f"profile of the evaluation-form path 2^{EXP_EVAL}"):
+        with phase(f"profile of the evaluation-form path 2^{EXP_EVAL} and the batched verify"):
             dense = torch.from_numpy(FR.encode([rng.randrange(R) for _ in range(d)])).to(dev)
             dense15 = torch.from_numpy(
                 FR.encode([rng.randrange(R) for _ in range(N_MAIN)])).to(dev)
@@ -1700,6 +1768,7 @@ def main(argv=None) -> int:
                 ("verify_eval_all", lambda: everifier.verify_eval_all(commitment, bw)),
                 ("msm_g2 dense 2^12", lambda: msm_g2(lag.lh, dense)),
                 ("msm_g2 dense 2^15", lambda: msm_g2(params.hs, dense15)),
+                (f"verify_eval_batched 2^15, k = {K_BATCH}", batched_verify),
             ], card, args.profile)
 
     # K4's critical path in dependent products at the timed shape (26
@@ -1730,24 +1799,45 @@ def main(argv=None) -> int:
         f"products), {report['field_pow_fr_chain_ms']:.4f} ms (Fr, {(R - 2).bit_length()}), "
         f"against the kernel's {kinfo['field_pow']['ms']:.4f} / "
         f"{report['field_pow_fr_1_ms']:.4f} ms [{card}]")
-    kreport = {"kernels": [
-        {
-            "name": k.name,
+    # K2 by mode: the narrow mode's critical path of 16-lane products and
+    # the wide mode's one-thread chain of serial products, each at the
+    # latency phase 3 measured; all the points' products at the rate phase
+    # 15 measured
+    for kname in mode_totals:
+        g2, op = int(kname.startswith("g2")), kname.split("_")[1]
+        prog = horner_schedule.expand(1 + g2)
+        for m, row in kinfo[kname]["modes"].items():
+            row["chain_ms"] = (horner_schedule.critical_products(prog, op)
+                               * latency_us[("Fp", True)] * 1e-3 if m == "narrow"
+                               else POINT_MULS[op][g2] * latency_us[("Fp", False)] * 1e-3)
+            row["throughput_ms"] = (row["points"] * POINT_MULS[op][g2]
+                                    / report["fp_mul_per_s"] * 1e3)
+
+    def report_rows(k):
+        """The kernel's rows of the report: one, or one a mode for K2."""
+        if not k.modes:
+            info, name, source, launches = kinfo[k.name], k.name, k.source, counts[k.name]
+            rows = [(name, source, launches, info, ("chain_ms", "throughput_ms"))]
+        else:
+            rows = [(f"{k.name}_{m}", k.modes[m], mode_totals[k.name][m],
+                     kinfo[k.name]["modes"][m], ("points", "chain_ms", "throughput_ms", "widths"))
+                    for m in cuda_ops.K2_MODES]
+        return [{
+            "name": name,
             "route": "cuda",
-            "source": k.source,
+            "source": source,
             "replaces": k.replaces,
-            "launches": counts[k.name],
-            "max_abs_err": kinfo[k.name]["max_abs_err"],
-            "ms": kinfo[k.name]["ms"],
-            "plain_ms": kinfo[k.name]["plain_ms"],
-            "bound_ms": kinfo[k.name]["bound"][0],
-            "bound_by": kinfo[k.name]["bound"][1],
+            "launches": launches,
+            "max_abs_err": info["max_abs_err"],
+            "ms": info["ms"],
+            "plain_ms": info["plain_ms"],
+            "bound_ms": info["bound"][0],
+            "bound_by": info["bound"][1],
             "library_ms": None,
-            **{key: kinfo[k.name][key] for key in ("chain_ms", "throughput_ms")
-               if key in kinfo[k.name]},
-        }
-        for k in kernels.REGISTRY.values()
-    ]}
+            **{key: info[key] for key in extra if key in info},
+        } for name, source, launches, info, extra in rows]
+
+    kreport = {"kernels": [row for k in kernels.REGISTRY.values() for row in report_rows(k)]}
     log("main paths: " + ", ".join(f"{k} {v}" for k, v in report.items()) + f" [{card}]")
     log(json.dumps(kreport))
     log(smi)

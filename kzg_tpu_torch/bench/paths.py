@@ -1,0 +1,176 @@
+"""The port's main paths timed and profiled in one process, for the port in
+this checkout or in another tree, so that two versions compare in one call
+on one NVIDIA GPU.
+
+    python3 kzg_tpu_torch/bench/paths.py [--root DIR] [--tag NAME] [--out JSON]
+
+`--root` is the directory that holds the `kzg_tpu_torch` package to time
+(default: this checkout); the script imports it from there, so a parent
+commit unpacked with `git archive` into a directory that .gitignore lists
+runs as it was. Run two trees in turns in one command (parent, change,
+change, parent) and compare the medians.
+
+Each path runs once to warm up, then three times, host-clocked and closed
+by a synchronize (the median and the three runs), then once more under
+`torch.profiler`: the device's busy time (the sum of the kernels' self
+device time; one stream, so kernels never overlap), the idle share (1 -
+busy / wall) and the device time of K2 (every kernel whose name holds
+`add_kernel`, `dbl_kernel` or `pointwise_`). Paths, with the inputs of
+`chip_smoke.py`'s counted phases (random, from a seed):
+  * setup_device(s, 2^20, g2_count=2), and commit and witness at 2^20;
+  * commit and witness at 2^15, the batched witness and the batched verify
+    at 2^15, k = 16 (the SRS from setup_device(s, 2^15, g2_count=2^15));
+  * the group iNTT of the Lagrange SRS at d = 2^12, G1 and G2, with their
+    affine conversion;
+  * msm_g2 over 2^12 and 2^15 random scalars.
+Prints the card's name and power limit and one JSON line; writes it to
+--out when given.
+"""
+
+import argparse
+import json
+import os
+import random
+import subprocess
+import sys
+import time
+
+SEED = 20260401
+K_BATCH = 16
+
+
+def _fr_words(torch, gen, n, dev, R):
+    low = torch.randint(-(1 << 31), 1 << 31, (7, n), generator=gen, device=dev,
+                        dtype=torch.int64)
+    top = torch.randint(0, R >> 224, (1, n), generator=gen, device=dev, dtype=torch.int64)
+    return torch.cat([low, top]).to(torch.int32)
+
+
+def _profile(torch, fn):
+    """(device busy ms, K2 device ms) of one call under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy = k2 = 0.0
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if us > 0 and evt.device_type == DeviceType.CUDA:
+            busy += us / 1e3
+            if any(k in evt.key for k in ("add_kernel", "dbl_kernel", "pointwise_")):
+                k2 += us / 1e3
+    return busy, k2
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))))
+    ap.add_argument("--tag", default="")
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("paths: a CUDA card is required", file=sys.stderr)
+        return 1
+    from kzg_tpu_torch import kernels
+    from kzg_tpu_torch.constants import R
+    from kzg_tpu_torch.curve import G1, G2
+    from kzg_tpu_torch.kzg import eval_form
+    from kzg_tpu_torch.kzg.coeff_form import KZGProver, KZGVerifier
+    from kzg_tpu_torch.kzg.srs import setup_device
+    from kzg_tpu_torch.msm import msm_g2
+    from kzg_tpu_torch.ntt import Domain
+    from kzg_tpu_torch.poly import Polynomial
+
+    if not kernels.__file__.startswith(root):
+        print(f"paths: imported {kernels.__file__}, not from {root}", file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    kernels.build()
+    kernels.library()
+    build_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    rng = random.Random(SEED)
+
+    def horner(coeffs, x):
+        acc = 0
+        for c in reversed(coeffs):
+            acc = (acc * x + c) % R
+        return acc
+
+    big = setup_device(SEED, 1 << 20, g2_count=2, device=dev)
+    poly20 = Polynomial(_fr_words(torch, gen, 1 << 20, dev, R))
+    x20 = rng.randrange(R)
+    y20 = horner(poly20.to_ints(), x20)
+    prover20 = KZGProver(big)
+    p15 = setup_device(SEED, 1 << 15, g2_count=1 << 15, device=dev)
+    poly15 = Polynomial(_fr_words(torch, gen, 1 << 15, dev, R))
+    c15 = poly15.to_ints()
+    x15 = rng.randrange(R)
+    y15 = horner(c15, x15)
+    xs = [rng.randrange(R) for _ in range(K_BATCH)]
+    ys = [horner(c15, x) for x in xs]
+    prover15, verifier15 = KZGProver(p15), KZGVerifier(p15)
+    commitment15 = prover15.commit(poly15)
+    bw = prover15.create_witness_batched(poly15, xs, ys)
+    dom12 = Domain(12)
+    g12 = tuple(t[..., :dom12.d] for t in p15.gs)
+    h12 = tuple(t[..., :dom12.d] for t in p15.hs)
+    s12 = _fr_words(torch, gen, 1 << 12, dev, R)
+    s15 = _fr_words(torch, gen, 1 << 15, dev, R)
+    hs12 = tuple(t[..., :1 << 12] for t in p15.hs)
+
+    paths = {
+        "setup_device 2^20": lambda: setup_device(SEED, 1 << 20, g2_count=2, device=dev),
+        "commit 2^20": lambda: prover20.commit(poly20),
+        "witness 2^20": lambda: prover20.create_witness(poly20, (x20, y20), check=False),
+        "commit 2^15": lambda: prover15.commit(poly15),
+        "witness 2^15": lambda: prover15.create_witness(poly15, (x15, y15)),
+        f"batched witness 2^15, k = {K_BATCH}":
+            lambda: prover15.create_witness_batched(poly15, xs, ys),
+        f"batched verify 2^15, k = {K_BATCH}":
+            lambda: verifier15.verify_eval_batched(commitment15, bw, xs),
+        "group iNTT G1 2^12": lambda: G1.to_affine(eval_form._group_intt(G1, g12, dom12)),
+        "group iNTT G2 2^12": lambda: G2.to_affine(eval_form._group_intt(G2, h12, dom12)),
+        "msm_g2 2^12": lambda: msm_g2(hs12, s12),
+        "msm_g2 2^15": lambda: msm_g2(p15.hs, s15),
+    }
+    rows = []
+    for name, fn in paths.items():
+        fn()
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        wall = sorted(runs)[1]
+        busy, k2 = _profile(torch, fn)
+        rows.append({"path": name, "wall_ms": wall, "runs_ms": runs, "device_busy_ms": busy,
+                     "k2_device_ms": k2, "idle_share": max(0.0, 1 - busy / wall)})
+        print(f"[{args.tag}] {name}: wall {wall:.2f} ms (runs "
+              f"{', '.join(f'{t:.2f}' for t in runs)}), device busy {busy:.2f} ms, K2 "
+              f"{k2:.3f} ms, idle {rows[-1]['idle_share']:.3f} [{card}]", flush=True)
+    out = {"tag": args.tag, "root": root, "card": card, "build_s": build_s, "paths": rows}
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -68,6 +68,12 @@ def _event_ms(fn, variants, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def held_ms(fn, iters: int) -> float:
+    """Device milliseconds a call of fn, by CUDA events around calls that
+    the card runs back to back (`_event_ms` on one operand set)."""
+    return _event_ms(lambda _: fn(), [None], iters)
+
+
 def mul_peak(field, lanes: int, device=None, generator: torch.Generator | None = None,
              iters: int = 20, cooperative: bool = False) -> MulPeak:
     """Measure `field`'s multiply rate on the card with K8 at `lanes`

@@ -1,6 +1,6 @@
-// The programs of K4 and of the digit ladder: dbl-2009-l, add-2007-bl and
-// madd-2007-bl as stages of chains of Fp operations on shared-memory slots
-// of 16 words (see horner.cuh, ladder.cuh).
+// The programs of K4, of the digit ladder and of K2's narrow mode: dbl-2009-l,
+// add-2007-bl and madd-2007-bl as stages of chains of Fp operations on
+// shared-memory slots of 16 words (see horner.cuh, ladder.cuh, pointwise.cuh).
 // Generated by `python -m kzg_tpu_torch.curve.horner_schedule --write`
 // from kzg_tpu_torch/curve/horner_schedule.py; do not edit.
 //

@@ -127,10 +127,9 @@ __device__ __forceinline__ void store_point(uint32_t* x, uint32_t* y, uint32_t* 
   Coord<E>::store(z, n, i, p.z);
 }
 
-// dbl-2009-l (a = 0): 2M + 5S. Out of line: it is the rare branch of add
-// and madd, and inlining it there would double their code.
+// dbl-2009-l (a = 0): 2M + 5S.
 template <class E>
-__device__ __noinline__ Jac<E> dbl(const Jac<E>& p) {
+__device__ __forceinline__ Jac<E> dbl_inline(const Jac<E>& p) {
   const E a = sqr(p.x);
   const E b = sqr(p.y);
   const E c = sqr(b);
@@ -150,10 +149,17 @@ __device__ __noinline__ Jac<E> dbl(const Jac<E>& p) {
   return out;
 }
 
+// The same out of line: the rare branch of madd, where inlining it would
+// double the code.
+template <class E>
+__device__ __noinline__ Jac<E> dbl(const Jac<E>& p) {
+  return dbl_inline(p);
+}
+
 // add-2007-bl with the exceptional cases of pallas_ops.py:158-196:
 // P == Q -> dbl(P); P == -Q -> infinity; an infinite operand passes the
-// other one through.
-template <class E>
+// other one through. kInlineDbl: the rare doubling inlined, else a call.
+template <class E, bool kInlineDbl = false>
 __device__ __forceinline__ Jac<E> add_pts(const Jac<E>& p, const Jac<E>& q) {
   const E z1z1 = sqr(p.z);
   const E z2z2 = sqr(q.z);
@@ -175,7 +181,7 @@ __device__ __forceinline__ Jac<E> add_pts(const Jac<E>& p, const Jac<E>& q) {
   out.z = mul(zz, h);
   if (is_zero(p.z)) return q;
   if (is_zero(q.z)) return p;
-  if (is_zero(h)) return is_zero(r) ? dbl(p) : infinity<E>();
+  if (is_zero(h)) return is_zero(r) ? (kInlineDbl ? dbl_inline(p) : dbl(p)) : infinity<E>();
   return out;
 }
 
@@ -206,8 +212,37 @@ __device__ __forceinline__ Jac<E> madd(const Jac<E>& p, const E& x2, const E& y2
 
 constexpr int kPointThreads = 128;
 
+// K2's wide mode, one thread a point: what cuda_ops launches once the
+// points fill the card (the narrow mode, two points a block on 16-lane
+// products, is pointwise.cuh). Minimum resident blocks an SM for each
+// kernel's __launch_bounds__ and whether add inlines its rare doubling,
+// from two runs of bench/pointwise.py on an H100 (700 W; PERF.md), each
+// against the kernel as it was (no minimum, the doubling a call) at 2^16,
+// 2^18 and 2^20 points. dbl inlines its body (the call's stack frame gone;
+// G1 143 registers, G2 255 and 84 B spilled): 17-24 % faster at 2^20. G1
+// add inlines the doubling (252 registers, none spilled; 1 or 2 blocks give
+// the same code, 3 forces 168 registers and a spill): within the spread of
+// two builds of one kernel (+-5 %). G2 add at 3 blocks (168 registers,
+// 3,432 B spilled against 255 and 1,352 B): 25-34 % faster at 2^20, 18 %
+// at 2^18, 8-9 % slower at 2^16 and slower still below, where the narrow
+// mode runs; inlining changes nothing there.
 template <class E>
-__global__ void __launch_bounds__(kPointThreads)
+struct K2Wide;
+
+template <>
+struct K2Wide<FpE> {
+  static constexpr int kAddMinBlocks = 2, kDblMinBlocks = 1;
+  static constexpr bool kAddInlineDbl = true;
+};
+
+template <>
+struct K2Wide<Fp2E> {
+  static constexpr int kAddMinBlocks = 3, kDblMinBlocks = 1;
+  static constexpr bool kAddInlineDbl = false;
+};
+
+template <class E>
+__global__ void __launch_bounds__(kPointThreads, K2Wide<E>::kAddMinBlocks)
 add_kernel(uint32_t* __restrict__ ox, uint32_t* __restrict__ oy, uint32_t* __restrict__ oz,
            const uint32_t* __restrict__ x1, const uint32_t* __restrict__ y1,
            const uint32_t* __restrict__ z1, const uint32_t* __restrict__ x2,
@@ -216,17 +251,17 @@ add_kernel(uint32_t* __restrict__ ox, uint32_t* __restrict__ oy, uint32_t* __res
   if (i >= n) return;
   const Jac<E> p = load_point<E>(x1, y1, z1, n, i);
   const Jac<E> q = load_point<E>(x2, y2, z2, n, i);
-  store_point<E>(ox, oy, oz, n, i, add_pts(p, q));
+  store_point<E>(ox, oy, oz, n, i, add_pts<E, K2Wide<E>::kAddInlineDbl>(p, q));
 }
 
 template <class E>
-__global__ void __launch_bounds__(kPointThreads)
+__global__ void __launch_bounds__(kPointThreads, K2Wide<E>::kDblMinBlocks)
 dbl_kernel(uint32_t* __restrict__ ox, uint32_t* __restrict__ oy, uint32_t* __restrict__ oz,
            const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
            const uint32_t* __restrict__ z, long long n) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  store_point<E>(ox, oy, oz, n, i, dbl(load_point<E>(x, y, z, n, i)));
+  store_point<E>(ox, oy, oz, n, i, dbl_inline(load_point<E>(x, y, z, n, i)));
 }
 
 // Jacobian p + affine q with a skip mask (1 = keep p): the standalone

@@ -4,10 +4,14 @@
 // instantiates them for G1 (coordinates (12, n) words).
 //
 // K2  kzg_g1_add / kzg_g1_dbl     replaces _PointKernels.add / .dbl
-//     (kzg_tpu/curve/pallas_ops.py:712,707; ncomp=1). One thread per point.
-//     Bound by field multiplications (add: 11M + 5S) and registers (two
-//     input points and the formula's temporaries); the rare doubling inside
-//     add is a per-thread branch instead of the TPU's whole-tile `lax.cond`.
+//     (kzg_tpu/curve/pallas_ops.py:712,707; ncomp=1) in two modes, which
+//     cuda_ops picks by the width. Wide: one thread per point (point.cuh),
+//     bound by the card's multiply throughput once the points fill it
+//     (add: 11M + 5S); the rare doubling inside add is a per-thread branch
+//     instead of the TPU's whole-tile `lax.cond`. Narrow
+//     (kzg_g1_add_narrow / kzg_g1_dbl_narrow, pointwise.cuh): two points a
+//     block, each level's products side by side over 16 lanes each, bound
+//     by one point's chain of dependent products.
 // K6  kzg_g1_madd                 replaces _PointKernels.madd
 //     (pallas_ops.py:270, `_madd_vals` :122-156). One thread per lane:
 //     Jacobian + affine madd-2007-bl (7M + 4S) under a skip mask, with the
@@ -50,8 +54,8 @@
 // C interface (ctypes): each entry launches on the caller's stream,
 // allocates nothing, and returns cudaGetLastError() of the launch.
 
-#include "horner.cuh"
 #include "point.cuh"
+#include "pointwise.cuh"
 
 extern "C" {
 
@@ -64,6 +68,17 @@ int kzg_g1_add(void* ox, void* oy, void* oz, const void* x1, const void* y1,
 int kzg_g1_dbl(void* ox, void* oy, void* oz, const void* x, const void* y,
                const void* z, long long n, void* stream) {
   return launch_dbl<FpE>(ox, oy, oz, x, y, z, n, stream);
+}
+
+int kzg_g1_add_narrow(void* ox, void* oy, void* oz, const void* x1, const void* y1,
+                      const void* z1, const void* x2, const void* y2, const void* z2,
+                      long long n, void* stream) {
+  return launch_pointwise_add<HornerProgG1>(ox, oy, oz, x1, y1, z1, x2, y2, z2, n, stream);
+}
+
+int kzg_g1_dbl_narrow(void* ox, void* oy, void* oz, const void* x, const void* y,
+                      const void* z, long long n, void* stream) {
+  return launch_pointwise_dbl<HornerProgG1>(ox, oy, oz, x, y, z, n, stream);
 }
 
 // (x2, y2) affine, skip (n) bytes: non-zero keeps p

@@ -16,14 +16,21 @@ G2: x.c0, x.c1, y.c0, y.c1, 12 words each: 48 words, 192 bytes.
 
 K2 `add` / `dbl` (G1) and `g2_add` / `g2_dbl` (G2) replace
 `_PointKernels.add` / `.dbl` (`kzg_tpu/curve/pallas_ops.py:712,707`, with
-ncomp = 1 and 2; the group law of `:81-196`). One kernel template over the
-coordinate type, one thread per point, the formulas and exceptional-case
-selects verbatim (opposite -> (1, 1, 0), infinity operands pass the other
-point through); the rare doubling inside `add` is a per-thread branch.
-Bound: field multiplications (add-2007-bl is 11M + 5S, an Fp M being a
-144-multiply CIOS and an Fp2 M three of them) and registers (a G2 point is
-72 words, so the G2 kernels spill); on the TPU it was VMEM round trips of
-limb planes, which the register-resident thread removes.
+ncomp = 1 and 2; the group law of `:81-196`), the formulas and
+exceptional-case selects verbatim (opposite -> (1, 1, 0), infinity operands
+pass the other point through). Two modes, picked by the width
+(`k2_mode`): most launches are narrow (the levels of the MSM's reductions
+and combines, the ladder table's adds, the batched verify's
+double-and-add), where one thread a point leaves the card nearly empty and
+the time is one thread's chain of 144-step serial CIOS products. There the
+NARROW kernel (`csrc/pointwise.cuh`) runs two points a block on the
+digit ladder's engine: each level's products side by side, each product
+over 16 lanes, so a point's time is its critical path of products. Once
+the points fill more than `NARROW_WAVES` waves of it, the WIDE kernel takes
+over (`csrc/point.cuh`): one thread a point, bound by the card's multiply
+throughput, where the 16-lane product's extra instructions cost more than
+they save. Registers: a G2 point is 72 words, so the wide G2 kernels
+spill.
 
 K3 `bucket_accumulate` replaces `_PointKernels.bucket_accumulate`
 (`pallas_ops.py:388`). The TPU version walked one window per launch over a
@@ -96,6 +103,7 @@ Each wrapper takes the plain twin for CPU tensors and launches its kernel
 for CUDA tensors; `*_plain` are the twins, usable on any device.
 """
 
+import functools
 import math
 from dataclasses import dataclass
 
@@ -103,6 +111,7 @@ import torch
 
 from .. import kernels
 from ..fields import FP
+from .horner_schedule import WARPS
 from .ops import CurveOps, Fp2Adapter
 
 # the plain twins of the point kernels: the same formulas over plain field ops
@@ -126,6 +135,10 @@ class _Group:
     def words(self) -> int:
         """Words of one coordinate: 12 (Fp) or 24 (Fp2)."""
         return math.prod(self.lead)
+
+    @property
+    def ncomp(self) -> int:
+        return len(self.lead)
 
     def entry(self, op: str):
         return getattr(kernels.library(), f"kzg_{self.name}_{op}")
@@ -174,10 +187,45 @@ def _ptrs(ts):
 
 # ---- K2 / K6: add, dbl, madd ---------------------------------------------------------
 
-def _launch(group, op, coords, extra=()):
+K2_MODES = ("narrow", "wide")
+# The most waves of the narrow kernel (SMs x its blocks an SM x 2 points)
+# at which K2 takes it, by kernel: the crossover of `bench.pointwise`, the
+# most waves at which the narrow mode's device time was the shorter (H100).
+NARROW_WAVES = {"g1_add": 3, "g1_dbl": 1, "g2_add": 16, "g2_dbl": 2}
+_NARROW_LANES = 2  # points a block of the narrow kernel, one a half-warp
+
+
+def narrow_min_blocks(ncomp: int) -> int:
+    """Blocks of the narrow kernel an SM: its __launch_bounds__ minimum
+    (`min_blocks` in csrc/ladder.cuh), 32 registers a thread for the
+    program's warps."""
+    return 65536 // (32 * 32 * WARPS[ncomp])
+
+
+def pointwise_mode(n: int, sm_count: int, min_blocks: int, waves: int) -> str:
+    """K2's mode for a launch of n points: "narrow" while the points fit
+    `waves` waves of the narrow kernel (sm_count x min_blocks blocks of two
+    points each), "wide" above."""
+    return "narrow" if n <= waves * sm_count * min_blocks * _NARROW_LANES else "wide"
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def k2_mode(group, op: str, n: int, device) -> str:
+    """The mode K2 `op` ("add" or "dbl") takes for n points of `group` on a
+    CUDA device."""
+    return pointwise_mode(n, _sm_count(device.index if device.index is not None
+                                       else torch.cuda.current_device()),
+                          narrow_min_blocks(group.ncomp), NARROW_WAVES[f"{group.name}_{op}"])
+
+
+def _launch(group, op, coords, extra=(), mode=None):
     """Launch a pointwise entry on the coordinates of one or two point
-    batches ((*lead, *batch) each) plus `extra` flat (n,) operands;
-    returns the (X, Y, Z) result."""
+    batches ((*lead, *batch) each) plus `extra` flat (n,) operands, in K2's
+    `mode` where it has one; returns the (X, Y, Z) result."""
     what = f"{group.name}_{op}"
     lead = group.lead
     shape = coords[0].shape
@@ -189,23 +237,32 @@ def _launch(group, op, coords, extra=()):
             raise kernels.KernelError(f"{what}: mask of {t.numel()} lanes on {t.device}")
     out = [torch.empty_like(ins[0]) for _ in range(3)]
     if n:
-        rc = group.entry(op)(*_ptrs(out), *_ptrs(ins), *_ptrs(extra), n,
-                             kernels.stream_handle(dev))
-        kernels.check_status(rc, what)
-        group.counter(op).launches += 1
+        entry = group.entry(f"{op}_narrow" if mode == "narrow" else op)
+        rc = entry(*_ptrs(out), *_ptrs(ins), *_ptrs(extra), n, kernels.stream_handle(dev))
+        kernels.check_status(rc, what if mode is None else f"{what} ({mode})")
+        group.counter(op).count(mode)
     return tuple(o.reshape(shape) for o in out)
 
 
-def _add(group, p, q):
+def _k2(group, op, coords, mode):
+    """K2 `op` in `mode`, or in the mode the width picks (mode None)."""
+    if mode is None:
+        mode = k2_mode(group, op, coords[0].numel() // group.words, coords[0].device)
+    elif mode not in K2_MODES:
+        raise kernels.KernelError(f"{group.name}_{op}: mode {mode!r} is not one of {K2_MODES}")
+    return _launch(group, op, coords, mode=mode)
+
+
+def _add(group, p, q, mode=None):
     if _is_cpu(p[0]):
         return group.plain.add(p, q)
-    return _launch(group, "add", (*p, *q))
+    return _k2(group, "add", (*p, *q), mode)
 
 
-def _dbl(group, p):
+def _dbl(group, p, mode=None):
     if _is_cpu(p[0]):
         return group.plain.dbl(p)
-    return _launch(group, "dbl", p)
+    return _k2(group, "dbl", p, mode)
 
 
 def _madd(group, p, q_affine, skip):
@@ -234,15 +291,17 @@ def madd_plain(p, q_affine, skip):
     return PLAIN.madd(p, q_affine, skip)
 
 
-def add(p, q):
+def add(p, q, mode=None):
     """K2 Jacobian add-2007-bl (exceptional cases included), elementwise
-    over equal-shaped G1 batches."""
-    return _add(_G1K, p, q)
+    over equal-shaped G1 batches; `mode` ("narrow" or "wide") overrides the
+    one the width picks (`k2_mode`)."""
+    return _add(_G1K, p, q, mode)
 
 
-def dbl(p):
-    """K2 Jacobian dbl-2009-l, elementwise over a G1 batch."""
-    return _dbl(_G1K, p)
+def dbl(p, mode=None):
+    """K2 Jacobian dbl-2009-l, elementwise over a G1 batch; `mode` as
+    `add`."""
+    return _dbl(_G1K, p, mode)
 
 
 def madd(p, q_affine, skip):
@@ -263,15 +322,15 @@ def g2_madd_plain(p, q_affine, skip):
     return PLAIN2.madd(p, q_affine, skip)
 
 
-def g2_add(p, q):
+def g2_add(p, q, mode=None):
     """K2 over Fp2: G2 Jacobian add, elementwise over equal-shaped batches
-    of (12, 2, *batch) coordinates."""
-    return _add(_G2K, p, q)
+    of (12, 2, *batch) coordinates; `mode` as `add`."""
+    return _add(_G2K, p, q, mode)
 
 
-def g2_dbl(p):
-    """K2 over Fp2: G2 Jacobian dbl, elementwise."""
-    return _dbl(_G2K, p)
+def g2_dbl(p, mode=None):
+    """K2 over Fp2: G2 Jacobian dbl, elementwise; `mode` as `add`."""
+    return _dbl(_G2K, p, mode)
 
 
 def g2_madd(p, q_affine, skip):

@@ -1,10 +1,11 @@
 """The program that kernel K4 (`csrc/horner.cuh`) runs for one doubling and
-one addition, and the digit ladder (`csrc/ladder.cuh`) for one doubling and
-one mixed addition, as tables of field operations, and their header.
+one addition, the digit ladder (`csrc/ladder.cuh`) for one doubling and
+one mixed addition, and K2's narrow mode (`csrc/pointwise.cuh`) for one
+addition or one doubling, as tables of field operations, and their header.
 
 K4 is one block that walks the Horner chain of the window join; the ladder
 kernel runs two lanes of the digit ladder a block on the same engine (one a
-half-warp). The warps share the point in shared memory; each warp runs one
+half-warp), and K2's narrow mode two points a block. The warps share the point in shared memory; each warp runs one
 CHAIN of field operations at a time (a Montgomery product or a modular
 add / sub, each spread over 16 lanes a word a lane), and a block barrier
 separates the STAGES. A stage's chains are independent, so they run side by
@@ -27,9 +28,9 @@ linear steps before and after its product included. Over Fp2:
 
 Every value is canonical in [0, p), so any correct formula gives the same
 words: the program equals the plain twins (`CurveOps.window_join`, the
-rounds of `CurveOps.scalar_mul_digits`) word for word, which
-`simulate_join` and `simulate_ladder` check on the CPU with Python
-integers.
+rounds of `CurveOps.scalar_mul_digits`, `CurveOps.add` / `dbl`) word for
+word, which `simulate_join`, `simulate_ladder`, `simulate_add` and
+`simulate_dbl` check on the CPU with Python integers.
 
 Regenerate the header after a change here:
 
@@ -279,47 +280,65 @@ def _run(stages, mem):
                     mem[d] = (mem[a] - mem[b]) % P
 
 
+class _Slots:
+    """The shared-memory slots of one point (one block lane) on Python
+    integers: named coordinates, each a tuple of ncomp Montgomery integers."""
+
+    def __init__(self, prog: Program):
+        self.prog = prog
+        self.mem = [0] * prog.nslots
+        self.one = (_ONE,) + (0,) * (prog.ncomp - 1)
+        self.nil = (0,) * prog.ncomp
+
+    def coord(self, name):
+        base = self.prog.slots[name]
+        return tuple(self.mem[base + i] for i in range(self.prog.ncomp))
+
+    def put(self, name, value):
+        for i, v in enumerate(value):
+            self.mem[self.prog.slots[name] + i] = v
+
+    def zero(self, name):
+        return not any(self.coord(name))
+
+    def point(self, names="XYZ"):
+        return tuple(self.coord(n) for n in names)
+
+    def set_point(self, value, names="XYZ"):
+        for n, v in zip(names, value):
+            self.put(n, v)
+
+    def set_infinity(self):
+        self.set_point((self.one, self.one, self.nil))
+
+    def run(self, which):
+        p = self.prog
+        _run({"dbl": p.stages[:p.dbl_end], "add": p.stages[p.dbl_end:], "madd": p.madd}[which],
+             self.mem)
+
+
 def simulate_join(prog: Program, sums, c: int):
     """K4's control flow and program on Python integers. sums: W window
     sums, each (x, y, z) with every coordinate a tuple of ncomp Montgomery
     integers; returns the joined point in the same form."""
-    mem = [0] * prog.nslots
-    s = prog.slots
-
-    def coord(name):
-        return tuple(mem[s[name] + i] for i in range(prog.ncomp))
-
-    def put(name, value):
-        for i, v in enumerate(value):
-            mem[s[name] + i] = v
-
-    def zero(name):
-        return not any(coord(name))
-
-    one = (_ONE,) + (0,) * (prog.ncomp - 1)
-    nil = (0,) * prog.ncomp
-    for name, v in zip("XYZ", (one, one, nil)):
-        put(name, v)
+    m = _Slots(prog)
+    m.set_infinity()
     for w in reversed(range(len(sums))):
         for _ in range(c):
-            if not zero("Z"):
-                _run(prog.stages[:prog.dbl_end], mem)
-        for name, v in zip(("X2", "Y2", "Z2"), sums[w]):
-            put(name, v)
-        if zero("Z"):
-            for a, b in zip("XYZ", ("X2", "Y2", "Z2")):
-                put(a, coord(b))
-        elif not zero("Z2"):
-            _run(prog.stages[prog.dbl_end:], mem)
-            if not zero("H"):
-                for a, b in zip("XYZ", ("X3", "Y3", "Z3")):
-                    put(a, coord(b))
-            elif zero("R"):
-                _run(prog.stages[:prog.dbl_end], mem)
+            if not m.zero("Z"):
+                m.run("dbl")
+        m.set_point(sums[w], ("X2", "Y2", "Z2"))
+        if m.zero("Z"):
+            m.set_point(m.point(("X2", "Y2", "Z2")))
+        elif not m.zero("Z2"):
+            m.run("add")
+            if not m.zero("H"):
+                m.set_point(m.point(("X3", "Y3", "Z3")))
+            elif m.zero("R"):
+                m.run("dbl")
             else:
-                for name, v in zip("XYZ", (one, one, nil)):
-                    put(name, v)
-    return tuple(coord(n) for n in "XYZ")
+                m.set_infinity()
+    return m.point()
 
 
 def simulate_ladder(prog: Program, entries, digits, p_inf: bool, c: int):
@@ -329,44 +348,67 @@ def simulate_ladder(prog: Program, entries, digits, p_inf: bool, c: int):
     the digit is 0 or p is infinite. entries: the 2^c - 1 affine multiples
     (x, y), each coordinate a tuple of ncomp Montgomery integers; returns
     the Jacobian (X, Y, Z) in the same form."""
-    mem = [0] * prog.nslots
-    s = prog.slots
-
-    def coord(name):
-        return tuple(mem[s[name] + i] for i in range(prog.ncomp))
-
-    def put(name, value):
-        for i, v in enumerate(value):
-            mem[s[name] + i] = v
-
-    def zero(name):
-        return not any(coord(name))
-
-    one = (_ONE,) + (0,) * (prog.ncomp - 1)
-    nil = (0,) * prog.ncomp
-    for name, v in zip("XYZ", (one, one, nil)):
-        put(name, v)
+    m = _Slots(prog)
+    m.set_infinity()
     for d in digits:
         for _ in range(c):
-            _run(prog.stages[:prog.dbl_end], mem)
+            m.run("dbl")
         if d == 0 or p_inf:
             continue
-        put("X2", entries[d - 1][0])
-        put("Y2", entries[d - 1][1])
-        if zero("Z"):  # infinity + Q = (x2, y2, 1)
-            for name, v in zip("XYZ", (coord("X2"), coord("Y2"), one)):
-                put(name, v)
+        m.put("X2", entries[d - 1][0])
+        m.put("Y2", entries[d - 1][1])
+        if m.zero("Z"):  # infinity + Q = (x2, y2, 1)
+            m.set_point((m.coord("X2"), m.coord("Y2"), m.one))
             continue
-        _run(prog.madd, mem)
-        if not zero("H"):
-            for a, b in zip("XYZ", ("X3", "Y3", "Z3")):
-                put(a, coord(b))
-        elif zero("R"):
-            _run(prog.stages[:prog.dbl_end], mem)  # P == Q: dbl(P)
+        m.run("madd")
+        if not m.zero("H"):
+            m.set_point(m.point(("X3", "Y3", "Z3")))
+        elif m.zero("R"):
+            m.run("dbl")  # P == Q: dbl(P)
         else:
-            for name, v in zip("XYZ", (one, one, nil)):  # P == -Q
-                put(name, v)
-    return tuple(coord(n) for n in "XYZ")
+            m.set_infinity()  # P == -Q
+    return m.point()
+
+
+def simulate_add(prog: Program, ps, qs):
+    """The narrow K2 add's control flow and program (csrc/pointwise.cuh) on
+    Python integers, for the points of one block (at most two): ps[h] +
+    qs[h], each a Jacobian (X, Y, Z) with every coordinate a tuple of ncomp
+    Montgomery integers. The block runs the addition's stages on every point
+    when any of them adds, then the doubling on the points with P == Q
+    alone; each point takes its result from the slots its own case names.
+    Returns the sums in the same form."""
+    assert 1 <= len(ps) == len(qs) <= 2
+    block = [_Slots(prog) for _ in ps]
+    src = []
+    for m, p, q in zip(block, ps, qs):
+        m.set_point(p)
+        m.set_point(q, ("X2", "Y2", "Z2"))
+        src.append("q" if m.zero("Z") else "p" if m.zero("Z2") else "sum")
+    if "sum" in src:
+        for m in block:
+            m.run("add")
+        same = [s == "sum" and m.zero("H") and m.zero("R") for m, s in zip(block, src)]
+        src = [("p" if m.zero("R") else "inf") if s == "sum" and m.zero("H") else s
+               for m, s in zip(block, src)]
+        for m, d in zip(block, same):
+            if d:
+                m.run("dbl")  # P == Q: dbl(P) in place, on this point's half alone
+    names = {"p": ("X", "Y", "Z"), "q": ("X2", "Y2", "Z2"), "sum": ("X3", "Y3", "Z3")}
+    return [(m.one, m.one, m.nil) if s == "inf" else m.point(names[s])
+            for m, s in zip(block, src)]
+
+
+def simulate_dbl(prog: Program, ps):
+    """The narrow K2 dbl (csrc/pointwise.cuh) on Python integers: the
+    doubling's stages on every point, infinity included, as the twin."""
+    out = []
+    for p in ps:
+        m = _Slots(prog)
+        m.set_point(p)
+        m.run("dbl")
+        out.append(m.point())
+    return out
 
 
 # ---- the header ------------------------------------------------------------------------
@@ -412,9 +454,9 @@ def _render_group(tag: str, prog: Program) -> str:
 
 def render() -> str:
     return "\n".join([
-        "// The programs of K4 and of the digit ladder: dbl-2009-l, add-2007-bl and",
-        "// madd-2007-bl as stages of chains of Fp operations on shared-memory slots",
-        "// of 16 words (see horner.cuh, ladder.cuh).",
+        "// The programs of K4, of the digit ladder and of K2's narrow mode: dbl-2009-l,",
+        "// add-2007-bl and madd-2007-bl as stages of chains of Fp operations on",
+        "// shared-memory slots of 16 words (see horner.cuh, ladder.cuh, pointwise.cuh).",
         "// Generated by `python -m kzg_tpu_torch.curve.horner_schedule --write`",
         "// from kzg_tpu_torch/curve/horner_schedule.py; do not edit.",
         "//",
@@ -439,7 +481,7 @@ def render() -> str:
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description="Print or write the K4 / ladder program header.")
+    ap = argparse.ArgumentParser(description="Print or write the K4 / ladder / K2 program header.")
     ap.add_argument("--write", action="store_true", help=f"write {HEADER.name} in csrc/")
     args = ap.parse_args(argv)
     text = render()

@@ -10,7 +10,9 @@ runs at import time: the CPU tests import every module of the port.
 
 Each kernel is described by a `Kernel` record in `REGISTRY`: its C entry
 point, its source, the Pallas kernel it replaces, and `launches`, the count
-its wrapper increments each time it launches the kernel on the card.
+its wrapper increments each time it launches the kernel on the card. K2's
+`add` and `dbl` run in two modes, picked by the width (`curve.cuda_ops`):
+their records also name each mode's source and count its launches apart.
 """
 
 import ctypes
@@ -21,7 +23,7 @@ import subprocess
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
@@ -29,9 +31,10 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "kzg_tpu_torch"
 SOURCES = ("field_kernels.cu", "point_kernels.cu", "ntt_kernels.cu",
            "point_g2_kernels.cu", "madd_g2_kernels.cu", "madd_multi_g2_kernels.cu",
-           "msm_g2_kernels.cu", "horner_g2_kernels.cu", "mxu_kernels.cu", "ladder_kernels.cu")
+           "msm_g2_kernels.cu", "horner_g2_kernels.cu", "mxu_kernels.cu", "ladder_kernels.cu",
+           "pointwise_g2_kernels.cu")
 HEADERS = ("field.cuh", "point.cuh", "coop.cuh", "horner.cuh", "horner_schedule.cuh",
-           "ladder.cuh")
+           "ladder.cuh", "pointwise.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -50,6 +53,24 @@ class Kernel:
     source: str        # repo path of the CUDA source
     replaces: str      # file:line of the Pallas kernel it replaces
     launches: int = 0  # launches on the card since the last reset
+    modes: dict = field(default_factory=dict)  # mode -> repo path of its source
+    mode_launches: dict = field(default_factory=dict)  # mode -> launches since the last reset
+
+    def count(self, mode=None):
+        """One launch on the card, in `mode` where the kernel has modes."""
+        self.launches += 1
+        if mode is not None:
+            self.mode_launches[mode] = self.mode_launches.get(mode, 0) + 1
+
+
+_CSRC = "kzg_tpu_torch/csrc/"
+
+
+def _k2(name: str, replaces: str, narrow: str, wide: str) -> Kernel:
+    """A K2 record: the narrow mode (pointwise.cuh, two points a block) and
+    the wide mode (point.cuh, one thread a point), each in its source."""
+    return Kernel(name, _CSRC + wide, replaces,
+                  modes={"narrow": _CSRC + narrow, "wide": _CSRC + wide})
 
 
 REGISTRY = {
@@ -57,10 +78,8 @@ REGISTRY = {
     for k in (
         Kernel("field_elementwise", "kzg_tpu_torch/csrc/field_kernels.cu",
                "kzg_tpu/fields/pallas_field.py:273"),
-        Kernel("g1_add", "kzg_tpu_torch/csrc/point_kernels.cu",
-               "kzg_tpu/curve/pallas_ops.py:712"),
-        Kernel("g1_dbl", "kzg_tpu_torch/csrc/point_kernels.cu",
-               "kzg_tpu/curve/pallas_ops.py:707"),
+        _k2("g1_add", "kzg_tpu/curve/pallas_ops.py:712", "point_kernels.cu", "point_kernels.cu"),
+        _k2("g1_dbl", "kzg_tpu/curve/pallas_ops.py:707", "point_kernels.cu", "point_kernels.cu"),
         Kernel("g1_bucket_accumulate", "kzg_tpu_torch/csrc/point_kernels.cu",
                "kzg_tpu/curve/pallas_ops.py:388"),
         Kernel("g1_horner_join", "kzg_tpu_torch/csrc/point_kernels.cu",
@@ -68,10 +87,10 @@ REGISTRY = {
         Kernel("ntt_stage", "kzg_tpu_torch/csrc/ntt_kernels.cu",
                "kzg_tpu/fields/pallas_field.py:346"),
         # the ncomp=2 (Fp2) instantiations of _PointKernels.add / .dbl
-        Kernel("g2_add", "kzg_tpu_torch/csrc/point_g2_kernels.cu",
-               "kzg_tpu/curve/pallas_ops.py:712"),
-        Kernel("g2_dbl", "kzg_tpu_torch/csrc/point_g2_kernels.cu",
-               "kzg_tpu/curve/pallas_ops.py:707"),
+        _k2("g2_add", "kzg_tpu/curve/pallas_ops.py:712", "pointwise_g2_kernels.cu",
+            "point_g2_kernels.cu"),
+        _k2("g2_dbl", "kzg_tpu/curve/pallas_ops.py:707", "pointwise_g2_kernels.cu",
+            "point_g2_kernels.cu"),
         # _PointKernels.madd, ncomp=1 and 2
         Kernel("g1_madd", "kzg_tpu_torch/csrc/point_kernels.cu",
                "kzg_tpu/curve/pallas_ops.py:270"),
@@ -108,10 +127,17 @@ REGISTRY = {
 def reset_launches():
     for k in REGISTRY.values():
         k.launches = 0
+        k.mode_launches = dict.fromkeys(k.modes, 0)
 
 
 def launch_counts() -> dict:
     return {name: k.launches for name, k in REGISTRY.items()}
+
+
+def mode_counts() -> dict:
+    """Launches by mode of the kernels that have modes: {name: {mode: n}}."""
+    return {name: {m: k.mode_launches.get(m, 0) for m in k.modes}
+            for name, k in REGISTRY.items() if k.modes}
 
 
 def _nvcc() -> str:
@@ -192,6 +218,11 @@ _SIGNATURES = {
     # G2: the same with (12, 2, n) coordinates
     "kzg_g2_add": (_P,) * 9 + (_N, _P),
     "kzg_g2_dbl": (_P,) * 6 + (_N, _P),
+    # K2's narrow mode, two points a block: the same arguments
+    "kzg_g1_add_narrow": (_P,) * 9 + (_N, _P),
+    "kzg_g1_dbl_narrow": (_P,) * 6 + (_N, _P),
+    "kzg_g2_add_narrow": (_P,) * 9 + (_N, _P),
+    "kzg_g2_dbl_narrow": (_P,) * 6 + (_N, _P),
     # (out, x, twiddles, nb, m, bt, table length, stage, stream)
     "kzg_ntt_stage": (_P,) * 3 + (_N,) * 4 + (_I, _P),
     # (ox, oy, oz, rows, order, sub-run pos, sub-run len, sub-runs, stream)

@@ -1,6 +1,7 @@
 """Kernels K1-K9 (G1 and G2) on the card against their plain PyTorch twins,
-exact, K3 and the bucket loop also on skewed digits, K4 at the window
-join's edge cases, K8 also in its cooperative mode, K1's Fermat chain
+exact, K2 in both modes (narrow and wide, at widths straddling the
+crossover, its edge cases in both halves of a block), K3 and the bucket
+loop also on skewed digits, K4 at the window join's edge cases, K8 also in its cooperative mode, K1's Fermat chain
 (`field_pow`) and the digit ladder (G1 and G2, also at its edge cases);
 the matmul-DFT NTT and
 device setup on the card; the default device; and no fallback when the
@@ -21,6 +22,7 @@ import torch
 from kzg_tpu_torch import config, kernels, native
 from kzg_tpu_torch.bench import horner as hbench
 from kzg_tpu_torch.bench import ladder as lbench
+from kzg_tpu_torch.bench import pointwise as pw
 from kzg_tpu_torch.constants import P, R
 from kzg_tpu_torch.curve import (
     G1, G2, cuda_ops, g1_from_device, g2_from_device, g2_generator_device,
@@ -91,6 +93,53 @@ def test_k2_add_dbl(dev):
     q[2][:, 7] = 0  # Q at infinity
     assert _equal(cuda_ops.add(p, q), cuda_ops.add_plain(p, q))
     assert _equal(cuda_ops.dbl(p), cuda_ops.dbl_plain(p))
+
+
+K2 = {"g1": (cuda_ops.add, cuda_ops.dbl, cuda_ops.add_plain, cuda_ops.dbl_plain, g1_from_device,
+             cuda_ops._G1K),
+      "g2": (cuda_ops.g2_add, cuda_ops.g2_dbl, cuda_ops.g2_add_plain, cuda_ops.g2_dbl_plain,
+             g2_from_device, cuda_ops._G2K)}
+
+
+def _k2_top(dev, group, op):
+    """The most points K2 `op` sends to its narrow mode on this card."""
+    return cuda_ops.NARROW_WAVES[f"{group}_{op}"] * 2 * (
+        torch.cuda.get_device_properties(dev).multi_processor_count
+        * cuda_ops.narrow_min_blocks(K2[group][5].ncomp))
+
+
+@pytest.mark.parametrize("where", ["1", "3", "edges", "top", "top+1"])
+@pytest.mark.parametrize("op", ["add", "dbl"])
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_k2_modes(dev, group, op, where):
+    """Both modes of K2 add or dbl against the twin at widths straddling
+    the crossover, the edge pairs in the first points (both halves of every
+    narrow block); the width's own mode taken by default."""
+    add, dbl, add_plain, dbl_plain, _, _ = K2[group]
+    edges = pw.edge_pairs(group, dev)
+    top = _k2_top(dev, group, op)
+    n = {"1": 1, "3": 3, "edges": edges[0][0].shape[-1], "top": top, "top+1": top + 1}[where]
+    p, q = pw.planted(group, n, torch.Generator(device=dev).manual_seed(n), edges[:2])
+    fn, args = (add, (p, q)) if op == "add" else (dbl, (p,))
+    want = add_plain(p, q) if op == "add" else dbl_plain(p)
+    for mode in cuda_ops.K2_MODES:
+        assert _equal(fn(*args, mode=mode), want)
+    before = kernels.mode_counts()[f"{group}_{op}"]
+    assert _equal(fn(*args), want)
+    after = kernels.mode_counts()[f"{group}_{op}"]
+    assert {m: after[m] - before[m] for m in after} == {"narrow": int(n <= top),
+                                                        "wide": int(n > top)}
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_k2_edge_pairs_match_oracle(dev, group):
+    add, dbl, _, _, from_device, _ = K2[group]
+    p, q, want, _ = pw.edge_pairs(group, dev)
+    for mode in cuda_ops.K2_MODES:
+        assert from_device(add(p, q, mode=mode)) == want
+        pts = from_device(p)
+        assert from_device(dbl(p, mode=mode)) == [None if a is None else lbench._mul(a, 2)
+                                                  for a in pts]
 
 
 def test_k3_k4_msm_buckets(dev):
@@ -451,6 +500,9 @@ def test_no_fallback_when_the_build_fails(dev, monkeypatch):
         cuda_ops.g2_add(p, p)
     with pytest.raises(kernels.KernelError):
         cuda_ops.g2_dbl(p)
+    for mode in cuda_ops.K2_MODES:
+        with pytest.raises(kernels.KernelError):
+            cuda_ops.g2_add(p, p, mode=mode)
     with pytest.raises(kernels.KernelError):
         cuda_field.mul_chain(FR, 3, x, x)
     with pytest.raises(kernels.KernelError):
