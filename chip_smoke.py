@@ -43,7 +43,17 @@ non-zero before the result line:
                 one product of each mode, printed on a line of its own;
                 K1's Fermat chain `field_pow` (Fr and Fp, 1 and 16 elements,
                 e = m - 2 and a random e; timed beside the K1 chain it
-                replaced); the digit ladder over G1 and G2 at the group
+                replaced); the scan kernel `field_scan` (Fr and Fp, mul and
+                add, forward and reverse, the array, column, total and pair
+                modes, n = 1, 3, 4097, 2^15 at 1 and 16 rows and 2^20 at one
+                row, edges 0, 1, m - 1; timed at the paths' shapes beside the
+                K1 chain it replaced) and the Horner kernel `fr_horner`
+                (division and remainder alone, n = 2, 4097, 2^15, 2^20 at 1
+                and 16 points, one of them 0, with and without a carry in;
+                timed at the witness's and the evaluation check's shapes
+                beside the K1 chain it replaced, the remainder at 1, 16 and
+                63 points also beside the chunked power method on
+                `field_scan`); the digit ladder over G1 and G2 at the group
                 iNTT's shape (2^11 lanes, c = 4, 64 windows; a lane with p
                 infinite, one with all-zero digits) and at its edge cases
                 (`bench.ladder.EDGE_DIGITS`: P == Q, P == -Q, infinity + Q;
@@ -63,10 +73,12 @@ non-zero before the result line:
   6. counts   - kernel launch counts of phases 4-5 (reset just before
                 phase 4): K1, field_pow, K2, K3, K4 and K7 (the witness's MSM
                 has 512 buckets a window) must each be > 0, and K2 add and
-                dbl must have taken the narrow mode; phase 5 also
-                shows the 2^15 witness inverting with one field_pow launch
-                and verify_eval converting with two, and fewer K1 launches
-                than one Fermat chain of K1 products took (418 Fr, 609 Fp);
+                dbl must have taken the narrow mode, field_scan and
+                fr_horner among them; phase 5 also shows the 2^15 witness
+                dividing on fr_horner with at most 10 K1 launches (181
+                before) and verify_eval converting with two field_pow
+                launches and fewer K1 launches than one Fermat chain of K1
+                products took (609 over Fp);
   7. golden   - the batched_2e8_k16 vector: commit, batched witness, h^Z
                 (G2) and g^r bytes, verify_eval_batched accepts;
   8. batched  - 2^15 coefficients opened at k = 16 points on the 2^15 SRS:
@@ -110,7 +122,9 @@ non-zero before the result line:
                 settings (CUDA events, mean of 5);
  17. 2^20     - `setup_device(s, 2^20, g2_count=2)` (powers 0, 1, 2^19 and
                 2^20 - 1 against the native engine), commit (equal to the
-                native engine's MSM and to f(s) G), witness, verify, tampered
+                native engine's MSM and to f(s) G), witness (with its peak
+                device memory above the resident SRS and f, and the
+                division alone: seconds and peak), verify, tampered
                 y rejected; the Lagrange basis from the secret by the device
                 route at 2^12 equal to the trusted one in `lg` and `lh`;
  18. counts   - launch counts of phases 15-17 (reset just before phase 15):
@@ -130,8 +144,8 @@ K3 and K7 run over sub-runs of at most L points of each bucket's run
 number of sub-runs, the longest one, the most sub-runs of one bucket and,
 for K7, its launches an MSM.
 Setups other than phase 5's take the default engine, the device route.
-With --profile, the evaluation-form path and the batched verify of phase 8
-are then profiled phase by phase (wall, launches, device time by kernel,
+With --profile, the evaluation-form path, the batched verify of phase 8
+and the 2^15 and 2^20 coefficient-form witnesses are then profiled phase by phase (wall, launches, device time by kernel,
 idle share) and the table written to JSON (default
 build/profile_eval.json).
 Every counted run prints K2's launches by mode. The last lines are the
@@ -146,7 +160,9 @@ dependent products at W = 26, c = 10 times the 16-lane Fp product's
 latency; the ladders' `chain_ms` is a lane's critical path at c = 4,
 W = 64 at that latency and `throughput_ms` all the lanes' Fp products at
 the rate phase 15 measured; field_pow's `chain_ms` its 381 Fp products at
-that latency), the nvidia-smi line, and {"ok": true, "device": {...}}.
+that latency; field_scan's and fr_horner's rows carry `k1_chain_ms`, the
+K1 chain each replaced, timed in the same run, and `shapes`, each timed
+shape), the nvidia-smi line, and {"ok": true, "device": {...}}.
 
 Bounds in the kernel report. `bound_ms` is the larger of two times: the
 bytes the function must move (each input read once, each output written
@@ -425,6 +441,8 @@ def main(argv=None) -> int:
     from kzg_tpu_torch.ntt import Domain, mxu
     from kzg_tpu_torch.oracle import ec_add, ec_neg, g1_generator
     from kzg_tpu_torch.poly import Polynomial, lagrange_interpolation, vanishing_poly
+    from kzg_tpu_torch.poly import horner as horner_mod
+    from kzg_tpu_torch.poly import polynomial as poly_mod
 
     dev = torch.device("cuda", 0)
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1067,6 +1085,115 @@ def main(argv=None) -> int:
             chain_ms=e_fp.bit_length() * latency_us[("Fp", True)] * 1e-3)
         report["field_pow_fr_chain_ms"] = (R - 2).bit_length() * latency_us[("Fr", True)] * 1e-3
 
+        # field_scan: Fr and Fp, mul and add, forward and reverse, the array,
+        # column, total and pair modes, 16 rows up to 2^15 and one at 2^20 (edges 0,
+        # 1, m - 1 first); then timed at the paths' shapes beside the chain of
+        # K1 launches it replaced (`field_scan_chain`)
+        scan_err = 0
+        scan_cases = (("array", False), ("array", True), ("total", False), ("column", False),
+                      ("pair", False))
+        for F in (FR, FP):
+            edge = torch.from_numpy(F.encode([0, 1, F.modulus - 1])).to(dev)
+            for n_scan in (1, 3, 4097, N_MAIN, 1 << 20):
+                for rows in ((1, 16) if n_scan <= N_MAIN else (1,)):
+                    a = peaks.random_elements(F, rows * n_scan, gen8).reshape(F.W, rows, n_scan)
+                    a[:, 0, :3] = edge[:, :n_scan]
+                    col = a[..., -1].contiguous()
+                    for op in (cuda_field.ADD, cuda_field.MUL):
+                        for mode, rev in scan_cases:
+                            src = col if mode == "column" else a
+                            err = max_abs_diff(
+                                cuda_field.field_scan(F, op, src, rev, mode, n_scan),
+                                cuda_field.field_scan_plain(F, op, src, rev, mode, n_scan))
+                            scan_err = max(scan_err, err)
+                    check(scan_err == 0, f"field_scan {F.name} at {n_scan} x {rows} rows: add and "
+                          "mul, forward, reverse, total, column and pair, equal plain")
+        del a, col, src
+        scan_ms = {}
+        for F, op, mode, rev, n_scan, what in (
+                (FP, cuda_field.MUL, "array", False, N_MAIN, "Fp prefix product 2^15 (batch_inv)"),
+                (FR, cuda_field.MUL, "column", False, 1 << 20, "Fr powers 2^20 (setup_device)"),
+                (FR, cuda_field.ADD, "array", True, N_MAIN, "Fr suffix sum 2^15"),
+                (FR, cuda_field.ADD, "total", False, 1 << 12, "Fr sum of 2^12 (sum_last)")):
+            a = peaks.random_elements(F, n_scan, gen8)
+            src = a[:, -1].contiguous() if mode == "column" else a
+            fn = lambda: cuda_field.field_scan(F, op, src, rev, mode, n_scan)  # noqa: E731
+            kms = cuda_ms(fn, 20)
+            chain = cuda_ms(lambda: cuda_field.field_scan_chain(F, op, src, rev, mode, n_scan), 3)
+            _, pms = once_ms(lambda: cuda_field.field_scan_plain(F, op, src, rev, mode, n_scan))
+            moved = (0 if mode == "column" else 1) + (0 if mode == "total" else 1)
+            b = bound(4 * F.W * (n_scan * moved + 1),
+                      n_scan * ((2 * F.W * F.W + F.W) if op == cuda_field.MUL else 2 * F.W))
+            scan_ms[what] = dict(ms=kms, plain_ms=pms, k1_chain_ms=chain, bound=b)
+            log(f"  field_scan {what}: kernel {kms:.4f} ms, the K1 chain it replaced "
+                f"{chain:.4f} ms, plain {pms:.2f} ms, bound {b[0]:.6f} ms ({b[1]}) [{card}]")
+        kinfo["field_scan"].update(max_abs_err=scan_err,
+                                   shapes={k: {kk: vv for kk, vv in v.items() if kk != "bound"}
+                                           for k, v in scan_ms.items()},
+                                   **scan_ms["Fp prefix product 2^15 (batch_inv)"])
+
+        # fr_horner: division and remainder alone, 1 and 16 points (one of
+        # them 0), with and without a carry in; timed at the witness's and the
+        # evaluation check's shapes beside the K1 chain it replaced
+        hor_err = 0
+        gen9 = torch.Generator(device=dev).manual_seed(SEED + 9)
+        for n_h in (2, 4097, N_MAIN, 1 << 20):
+            f_h = random_fr_words(gen9, (n_h,), dev)
+            for k_h in (1, 16):
+                x_h = random_fr_words(gen9, (k_h,), dev)
+                if k_h > 1:
+                    x_h[:, 1] = 0
+                cin = random_fr_words(gen9, (k_h,), dev)
+                for carry in (None, cin):
+                    for rem_only in (False, True):
+                        got = horner_mod.fr_horner(f_h, x_h, carry, rem_only)
+                        want = horner_mod.fr_horner_plain(f_h, x_h, carry, rem_only)
+                        err = max_abs_diff(got[1], want[1])
+                        if not rem_only:
+                            err = max(err, max_abs_diff(got[0], want[0]))
+                        hor_err = max(hor_err, err)
+                        del got, want
+                check(hor_err == 0, f"fr_horner at n = {n_h}, {k_h} points: division and "
+                      "remainder, with and without a carry in, equal plain")
+            if n_h == 4097:
+                ints = FR.decode(f_h)
+                xv = FR.decode(x_h[:, :1])[0]
+                check(FR.decode(horner_mod.fr_horner(f_h, x_h[:, :1])[1]) == [horner(ints, xv, R)],
+                      "fr_horner's remainder at n = 4097 equals Python's Horner")
+        hor_ms = {}
+        for n_h, k_h, rem_only, what in ((N_MAIN, 1, False, "division 2^15 (witness)"),
+                                         (1 << 20, 1, False, "division 2^20 (witness)"),
+                                         (N_MAIN, 1, True, "evaluation 2^15 (check)"),
+                                         (N_MAIN, K_BATCH, True, "evaluation 2^15 at 16 points"),
+                                         (N_MAIN, 63, True, "evaluation 2^15 at 63 points")):
+            f_h = random_fr_words(gen9, (n_h,), dev)
+            x_h = random_fr_words(gen9, (k_h,), dev)
+            fn = lambda: horner_mod.fr_horner(f_h, x_h, rem_only=rem_only)  # noqa: E731
+            kms = cuda_ms(fn, 20)
+            chain = cuda_ms(lambda: horner_mod.fr_horner_chain(f_h, x_h, rem_only=rem_only), 3)
+            _, pms = once_ms(lambda: horner_mod.fr_horner_plain(f_h, x_h, rem_only=rem_only))
+            b = bound(32 * (n_h + (0 if rem_only else k_h * (n_h - 1)) + 2 * k_h),
+                      k_h * n_h * (FR_MUL_MADS + 16))
+            hor_ms[what] = dict(ms=kms, plain_ms=pms, k1_chain_ms=chain, bound=b)
+            power = ""
+            if rem_only:
+                # the chunked power method with its scans on field_scan: the
+                # route Horner's remainder takes the place of at every k
+                pm = lambda: horner_mod.evaluation_formula(  # noqa: E731
+                    FR, cuda_field.field_scan, f_h, x_h)
+                check(max_abs_diff(pm(), fn()[1]) == 0,
+                      f"fr_horner {what}: the power method on field_scan gives the same words")
+                hor_ms[what]["power_method_ms"] = cuda_ms(pm, 5)
+                power = f", the power method on field_scan {hor_ms[what]['power_method_ms']:.4f} ms"
+            log(f"  fr_horner {what}: kernel {kms:.4f} ms, the K1 chain it replaced "
+                f"{chain:.4f} ms{power}, plain {pms:.2f} ms, bound {b[0]:.6f} ms ({b[1]}) "
+                f"[{card}]")
+        kinfo["fr_horner"].update(max_abs_err=hor_err,
+                                  shapes={k: {kk: vv for kk, vv in v.items() if kk != "bound"}
+                                          for k, v in hor_ms.items()},
+                                  **hor_ms["division 2^15 (witness)"])
+        del f_h, x_h
+
         # the digit ladder at the group iNTT's shape (2^11 lanes, c = 4, 64
         # windows), G1 and G2, against its twin; its edge cases against the
         # twin and the oracle; timed also at 2^12 and 2^14 lanes
@@ -1231,14 +1358,18 @@ def main(argv=None) -> int:
         verify_s = time.perf_counter() - t0
         after = kernels.launch_counts()
         check(ok, "2^15 verify_eval accepts")
-        # each inverse is one field_pow launch; no chain of K1 launches is left
-        # (the Fr chain of r - 2 was 418 K1 launches, the Fp chain of p - 2 609)
-        k1_w, pow_w = (mid[k] - before[k] for k in ("field_elementwise", "field_pow"))
-        k1_v, pow_v = (after[k] - mid[k] for k in ("field_elementwise", "field_pow"))
-        log(f"  launches: witness K1 {k1_w}, field_pow {pow_w}; verify_eval K1 {k1_v}, "
-            f"field_pow {pow_v}")
-        check(pow_w == 1 and k1_w < 418,
-              f"the witness inverts with one field_pow launch and {k1_w} < 418 K1 launches")
+        # the witness's evaluation check and division run on fr_horner (they
+        # took 181 K1 launches and one field_pow); each inverse of verify_eval
+        # is one field_pow launch (the Fp chain of p - 2 was 609 K1 launches)
+        names = ("field_elementwise", "field_pow", "field_scan", "fr_horner")
+        k1_w, pow_w, scan_w, hor_w = (mid[k] - before[k] for k in names)
+        k1_v, pow_v, scan_v, hor_v = (after[k] - mid[k] for k in names)
+        log(f"  launches: witness K1 {k1_w}, field_pow {pow_w}, field_scan {scan_w}, fr_horner "
+            f"{hor_w}; verify_eval K1 {k1_v}, field_pow {pow_v}, field_scan {scan_v}, "
+            f"fr_horner {hor_v}")
+        check(hor_w >= 1 and k1_w <= 10,
+              f"the witness divides on fr_horner ({hor_w} launches) with {k1_w} <= 10 K1 "
+              "launches (181 before)")
         check(pow_v == 2 and k1_v < 609,
               f"verify_eval's two affine conversions take two field_pow launches and "
               f"{k1_v} < 609 K1 launches")
@@ -1249,15 +1380,17 @@ def main(argv=None) -> int:
             f"verify {verify_s:.4f} s; native host MSM {native_s:.4f} s; setup {setup_s:.2f} s "
             f"[{card}]")
         report.update(commit_s=commit_s, witness_s=witness_s, verify_s=verify_s,
-                      points_per_s=N_MAIN / commit_s)
+                      points_per_s=N_MAIN / commit_s, witness_2e15_k1_launches=k1_w,
+                      witness_2e15_fr_horner_launches=hor_w)
+        witness15 = (prover, poly, x, y)  # profiled by phase with --profile
 
     # ---- 6. launch counts of the single-opening path ---------------------------------------------
     with phase("launch counts 4-5"):
         counts_single, modes_single = kernels.launch_counts(), kernels.mode_counts()
         log(f"  {counts_single}")
         log(f"  K2 by mode: {modes_single}")
-        for k in ("field_elementwise", "field_pow", "g1_add", "g1_dbl", "g1_bucket_accumulate",
-                  "g1_madd_multi", "g1_horner_join"):
+        for k in ("field_elementwise", "field_pow", "field_scan", "fr_horner", "g1_add", "g1_dbl",
+                  "g1_bucket_accumulate", "g1_madd_multi", "g1_horner_join"):
             check(counts_single[k] > 0,
                   f"{k} launched {counts_single[k]} times on the single-opening path")
         for k in ("g1_add", "g1_dbl"):  # the reductions' last levels hold a few points
@@ -1356,8 +1489,9 @@ def main(argv=None) -> int:
             check(modes_batched[k]["narrow"] > 0,
                   f"{k} took its narrow mode {modes_batched[k]['narrow']} times on the "
                   "batched path")
-        for k in ("field_elementwise", "g1_add", "g1_dbl", "g1_bucket_accumulate",
-                  "g1_madd_multi", "g1_horner_join", "ntt_stage", "g2_add", "g2_dbl"):
+        for k in ("field_elementwise", "field_scan", "fr_horner", "g1_add", "g1_dbl",
+                  "g1_bucket_accumulate", "g1_madd_multi", "g1_horner_join", "ntt_stage", "g2_add",
+                  "g2_dbl"):
             check(counts_batched[k] > 0,
                   f"{k} launched {counts_batched[k]} times on the batched path")
 
@@ -1521,9 +1655,10 @@ def main(argv=None) -> int:
             # a 2^12-point G1 MSM takes the bucket loop on K7, so this run
             # gives the G1 instantiation of K3 nothing; K8 and K9 belong to
             # the probe and the matmul-DFT NTT (phases 15-16); K6's madd
-            # runs inside the ladder kernel
+            # runs inside the ladder kernel; the evaluation form divides in
+            # evaluation form, without fr_horner
             check(n_launch > 0 or k in ("g1_bucket_accumulate", "mul_chain", "mxu_reduce",
-                                        "g1_madd", "g2_madd"),
+                                        "g1_madd", "g2_madd", "fr_horner"),
                   f"{k} launched {n_launch} times on the G2 MSM and evaluation-form path")
         check(counts_eval["g1_madd"] == 0 and counts_eval["g2_madd"] == 0,
               "no stand-alone madd launch on the evaluation-form path (the ladder has them)")
@@ -1628,6 +1763,24 @@ def main(argv=None) -> int:
         y = horner(coeffs, x, R)
         witness, witness20_s, wtimes = median3(
             lambda: prover.create_witness(poly, (x, y), check=False))
+        # the device memory the witness and its division take above what is
+        # resident (the SRS, f): peak less allocated before, one call each
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        prover.create_witness(poly, (x, y), check=False)
+        torch.cuda.synchronize()
+        witness_peak = torch.cuda.max_memory_allocated() - resident
+        pt20 = torch.from_numpy(FR.encode([x])).to(dev)
+        torch.cuda.reset_peak_memory_stats()
+        (_, _), div20_s, dtimes = median3(lambda: poly_mod._div_by_linear(poly.trimmed(), pt20))
+        div_peak = torch.cuda.max_memory_allocated() - resident
+        log(f"  2^20 witness: peak device memory above the resident {resident / 2**20:.1f} MiB "
+            f"(SRS, f) {witness_peak / 2**20:.1f} MiB; the division alone {div20_s:.6f} s (runs "
+            f"{', '.join(f'{t:.6f}' for t in dtimes)}), peak above resident "
+            f"{div_peak / 2**20:.1f} MiB (q alone {8 * 4 * (n20 - 1) / 2**20:.1f} MiB) [{card}]")
+        report.update(witness_2e20_peak_mib=witness_peak / 2**20,
+                      division_2e20_s=div20_s, division_2e20_peak_mib=div_peak / 2**20)
         verifier = KZGVerifier(big)
         t0 = time.perf_counter()
         ok = verifier.verify_eval((x, y), commitment, witness)
@@ -1644,7 +1797,8 @@ def main(argv=None) -> int:
                       points_per_s_2e20=n20 / commit20_s, witness_2e20_s=witness20_s,
                       verify_2e20_s=verify20_s)
         big_gs = big.gs  # K3 is timed at the witness's shape after the count (phase 19)
-        del big, prover, verifier, poly
+        witness20 = (prover, poly, x, y)  # profiled by phase with --profile
+        del big, verifier
 
     with phase(f"Lagrange SRS from the secret, device route 2^{EXP_EVAL}"):
         torch.cuda.synchronize()
@@ -1664,8 +1818,9 @@ def main(argv=None) -> int:
         counts_big, modes_big = kernels.launch_counts(), kernels.mode_counts()
         log(f"  {counts_big}")
         log(f"  K2 by mode: {modes_big}")
-        for k in ("mul_chain", "mxu_reduce", "field_elementwise", "ntt_stage", "g1_add", "g1_dbl",
-                  "g2_add", "g1_bucket_accumulate", "g1_horner_join"):
+        for k in ("mul_chain", "mxu_reduce", "field_elementwise", "field_scan", "fr_horner",
+                  "ntt_stage", "g1_add", "g1_dbl", "g2_add", "g1_bucket_accumulate",
+                  "g1_horner_join"):
             check(counts_big[k] > 0, f"{k} launched {counts_big[k]} times on the probe, "
                   "matmul-DFT, device-setup and 2^20 path")
         check(modes_big["g1_add"]["wide"] > 0 and modes_big["g1_add"]["narrow"] > 0,
@@ -1742,7 +1897,8 @@ def main(argv=None) -> int:
     with phase(f"launch counts 20"):
         log(f"  {counts_lag}")
         log(f"  K2 by mode: {modes_lag}")
-        for k in ("g1_ladder", "g2_ladder", "field_pow", "field_elementwise", "g1_add", "g2_add"):
+        for k in ("g1_ladder", "g2_ladder", "field_pow", "field_elementwise", "field_scan",
+                  "g1_add", "g2_add"):
             check(counts_lag[k] > 0, f"{k} launched {counts_lag[k]} times on the trusted "
                   f"Lagrange SRS at 2^{EXP_LAGRANGE}")
         counts = {k: counts_single[k] + counts_batched[k] + counts_eval[k] + counts_big[k]
@@ -1769,6 +1925,10 @@ def main(argv=None) -> int:
                 ("msm_g2 dense 2^12", lambda: msm_g2(lag.lh, dense)),
                 ("msm_g2 dense 2^15", lambda: msm_g2(params.hs, dense15)),
                 (f"verify_eval_batched 2^15, k = {K_BATCH}", batched_verify),
+                ("create_witness 2^15 (coefficient form)",
+                 lambda: witness15[0].create_witness(witness15[1], witness15[2:])),
+                ("create_witness 2^20 (coefficient form, check=False)",
+                 lambda: witness20[0].create_witness(witness20[1], witness20[2:], check=False)),
             ], card, args.profile)
 
     # K4's critical path in dependent products at the timed shape (26
@@ -1817,7 +1977,8 @@ def main(argv=None) -> int:
         """The kernel's rows of the report: one, or one a mode for K2."""
         if not k.modes:
             info, name, source, launches = kinfo[k.name], k.name, k.source, counts[k.name]
-            rows = [(name, source, launches, info, ("chain_ms", "throughput_ms"))]
+            rows = [(name, source, launches, info,
+                     ("chain_ms", "throughput_ms", "k1_chain_ms", "shapes"))]
         else:
             rows = [(f"{k.name}_{m}", k.modes[m], mode_totals[k.name][m],
                      kinfo[k.name]["modes"][m], ("points", "chain_ms", "throughput_ms", "widths"))

@@ -11,15 +11,21 @@ runs as it was. Run two trees in turns in one command (parent, change,
 change, parent) and compare the medians.
 
 Each path runs once to warm up, then three times, host-clocked and closed
-by a synchronize (the median and the three runs), then once more under
-`torch.profiler`: the device's busy time (the sum of the kernels' self
-device time; one stream, so kernels never overlap), the idle share (1 -
-busy / wall) and the device time of K2 (every kernel whose name holds
-`add_kernel`, `dbl_kernel` or `pointwise_`). Paths, with the inputs of
-`chip_smoke.py`'s counted phases (random, from a seed):
-  * setup_device(s, 2^20, g2_count=2), and commit and witness at 2^20;
-  * commit and witness at 2^15, the batched witness and the batched verify
-    at 2^15, k = 16 (the SRS from setup_device(s, 2^15, g2_count=2^15));
+by a synchronize (the median and the three runs), then once more counting
+the port's launches by kernel and the peak device memory above what was
+allocated before the call (`torch.cuda.max_memory_allocated`), then once
+more under `torch.profiler`: the device's busy time (the sum of the
+kernels' self device time; one stream, so kernels never overlap), the idle
+share (1 - busy / wall) and the device time of K2 (every kernel whose name
+holds `add_kernel`, `dbl_kernel` or `pointwise_`), of K1 (`binary_kernel`,
+`mul_const_kernel`) and of the scan and Horner kernels (`scan_kernel`,
+`horner_kernel`). Paths, with the inputs of `chip_smoke.py`'s counted
+phases (random, from a seed):
+  * setup_device(s, 2^20, g2_count=2), and commit and witness at 2^20, the
+    witness's linear division alone;
+  * commit and witness at 2^15, the witness's evaluation check and linear
+    division alone, the batched witness and the batched verify at 2^15,
+    k = 16 (the SRS from setup_device(s, 2^15, g2_count=2^15));
   * the group iNTT of the Lagrange SRS at d = 2^12, G1 and G2, with their
     affine conversion;
   * msm_g2 over 2^12 and 2^15 random scalars.
@@ -37,6 +43,10 @@ import time
 
 SEED = 20260401
 K_BATCH = 16
+# kernels by the names their device functions carry
+GROUPS = {"k2": ("add_kernel", "dbl_kernel", "pointwise_"),
+          "k1": ("binary_kernel", "mul_const_kernel"),
+          "scan_horner": ("scan_kernel", "horner_kernel")}
 
 
 def _fr_words(torch, gen, n, dev, R):
@@ -47,23 +57,25 @@ def _fr_words(torch, gen, n, dev, R):
 
 
 def _profile(torch, fn):
-    """(device busy ms, K2 device ms) of one call under torch.profiler."""
+    """(device busy ms, {group: device ms}) of one call under torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    busy = k2 = 0.0
+    busy = 0.0
+    groups = dict.fromkeys(GROUPS, 0.0)
     for evt in prof.key_averages():
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = evt.self_cuda_time_total
         if us > 0 and evt.device_type == DeviceType.CUDA:
             busy += us / 1e3
-            if any(k in evt.key for k in ("add_kernel", "dbl_kernel", "pointwise_")):
-                k2 += us / 1e3
-    return busy, k2
+            for g, keys in GROUPS.items():
+                if any(k in evt.key for k in keys):
+                    groups[g] += us / 1e3
+    return busy, groups
 
 
 def main(argv=None) -> int:
@@ -135,8 +147,11 @@ def main(argv=None) -> int:
         "setup_device 2^20": lambda: setup_device(SEED, 1 << 20, g2_count=2, device=dev),
         "commit 2^20": lambda: prover20.commit(poly20),
         "witness 2^20": lambda: prover20.create_witness(poly20, (x20, y20), check=False),
+        "division 2^20": lambda: poly20.div_by_linear(x20, want_rem=False),
         "commit 2^15": lambda: prover15.commit(poly15),
         "witness 2^15": lambda: prover15.create_witness(poly15, (x15, y15)),
+        "evaluation check 2^15": lambda: poly15.eval(x15),
+        "division 2^15": lambda: poly15.div_by_linear(x15, want_rem=False),
         f"batched witness 2^15, k = {K_BATCH}":
             lambda: prover15.create_witness_batched(poly15, xs, ys),
         f"batched verify 2^15, k = {K_BATCH}":
@@ -157,12 +172,24 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             runs.append((time.perf_counter() - t0) * 1e3)
         wall = sorted(runs)[1]
-        busy, k2 = _profile(torch, fn)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        peak_mib = (torch.cuda.max_memory_allocated() - resident) / 2**20
+        launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        busy, groups = _profile(torch, fn)
         rows.append({"path": name, "wall_ms": wall, "runs_ms": runs, "device_busy_ms": busy,
-                     "k2_device_ms": k2, "idle_share": max(0.0, 1 - busy / wall)})
+                     "k2_device_ms": groups["k2"], "k1_device_ms": groups["k1"],
+                     "scan_horner_device_ms": groups["scan_horner"], "peak_mib": peak_mib,
+                     "launches": launches, "idle_share": max(0.0, 1 - busy / wall)})
         print(f"[{args.tag}] {name}: wall {wall:.2f} ms (runs "
               f"{', '.join(f'{t:.2f}' for t in runs)}), device busy {busy:.2f} ms, K2 "
-              f"{k2:.3f} ms, idle {rows[-1]['idle_share']:.3f} [{card}]", flush=True)
+              f"{groups['k2']:.3f} ms, K1 {groups['k1']:.3f} ms, scan / Horner "
+              f"{groups['scan_horner']:.3f} ms, idle {rows[-1]['idle_share']:.3f}, peak "
+              f"{peak_mib:.1f} MiB above resident; launches {launches} [{card}]", flush=True)
     out = {"tag": args.tag, "root": root, "card": card, "build_s": build_s, "paths": rows}
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

@@ -48,6 +48,25 @@ multiply LSB first, as the chain of K1 launches that `pow_static` ran
 over 16 lanes (`csrc/coop.cuh`). Bound: the latency of nbits dependent
 products. Plain version: `field_pow_plain`; `field_pow_chain` is the
 route it replaced (one K1 launch a step), kept for the bench.
+
+`field_scan` (`csrc/scan.cuh`, `csrc/scan_kernels.cu`, counted as
+`field_scan`) replaces the rounds of K1 launches of `_prefix_scan` and
+`sum_last` (`kzg_tpu/fields/limb.py:337,385` over `_run_elementwise`,
+`pallas_field.py:295`): an inclusive scan of mul or add along the last
+axis, forward or reverse, of an array, of a column broadcast along n
+(never built), or only each row's fold. A block stages a tile of 1024
+elements of one row in shared memory with coalesced loads, each thread
+folds a run of 4 in registers, the runs' totals are scanned across the warp
+by shuffles and across the warps through shared memory. Longer rows take a
+pass for the tiles' totals, the totals' own scan, and a pass from each
+tile's carry: 1-3 launches up to 2^20 elements. Its pair mode scans each
+row both ways in one pass, exclusive, the two halves of the output written
+in place (`batch_inv`'s prefix and suffix products, with no copy of the
+input reversed). Bound: the bytes in and out
+at these widths, or n products; the launches it saves are the point.
+Plain version: `field_scan_plain` (the doubling rounds and the pairwise
+tree on the plain twin); `field_scan_chain` is the same rounds on K1, the
+route it replaced.
 """
 
 import ctypes
@@ -371,6 +390,176 @@ def field_pow(field, a: torch.Tensor, e: int) -> torch.Tensor:
     kernels.check_status(rc, f"{field.name} field_pow ({e.bit_length()} bits)")
     _POW.launches += 1
     return out
+
+
+# ---- field_scan: prefix scans and folds in a few tile passes ---------------------------
+
+_SCAN = kernels.REGISTRY["field_scan"]
+SCAN_THREADS = 256  # csrc/scan.cuh kScanThreads
+SCAN_RUN = 4  # kScanRun: elements a thread
+SCAN_TILE = SCAN_THREADS * SCAN_RUN  # kScanTile: elements a block
+SCAN_REVERSE, SCAN_PAIR, SCAN_EXCLUSIVE = 1, 2, 4  # kScanReverse, kScanPair, kScanExclusive
+SCAN_MODES = ("array", "column", "total", "pair")
+
+
+def _identity(field, op, shape, device) -> torch.Tensor:
+    if op == MUL:
+        return field.one(shape, device)
+    return torch.zeros((field.W,) + tuple(shape), dtype=torch.int32, device=device)
+
+
+def _doubling_scan(field, binop, op, x: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """Inclusive running fold along the last axis by doubling: ceil(log2 n)
+    rounds of one whole-array `binop`, a roll and a select each."""
+    n = x.shape[-1]
+    if n <= 1:
+        return x
+    if reverse:
+        x = torch.flip(x, dims=(-1,))
+    idx = torch.arange(n, device=x.device)
+    s = 1
+    while s < n:
+        x = torch.where(idx >= s, binop(field, op, x, torch.roll(x, s, dims=-1)), x)
+        s <<= 1
+    if reverse:
+        x = torch.flip(x, dims=(-1,))
+    return x
+
+
+def _fold_tree(field, binop, op, a: torch.Tensor) -> torch.Tensor:
+    """Fold along the last axis: a pairwise tree of whole-array `binop`s,
+    an identity appended at odd levels."""
+    if a.shape[-1] == 0:
+        return _identity(field, op, a.shape[1:-1], a.device)
+    while a.shape[-1] > 1:
+        if a.shape[-1] % 2:
+            a = torch.cat([a, _identity(field, op, a.shape[1:-1] + (1,), a.device)], dim=-1)
+        a = binop(field, op, a[..., 0::2], a[..., 1::2])
+    return a[..., 0]
+
+
+def _scan_loop(field, binop, op, x, reverse, mode, n):
+    if mode == "column":
+        x = x[..., None].expand(tuple(x.shape) + (n,))
+    if mode == "total":
+        return _fold_tree(field, binop, op, x)
+    if mode == "pair":
+        if x.shape[-1] == 0:
+            return torch.stack([x, x])
+        ident = _identity(field, op, x.shape[1:-1] + (1,), x.device)
+        pre = _doubling_scan(field, binop, op, x, False)
+        suf = _doubling_scan(field, binop, op, x, True)
+        return torch.stack([torch.cat([ident, pre[..., :-1]], dim=-1),
+                            torch.cat([suf[..., 1:], ident], dim=-1)])
+    return _doubling_scan(field, binop, op, x, reverse)
+
+
+def _check_scan_args(op, mode, n):
+    if op not in (ADD, MUL):
+        raise ValueError(f"scan op must be ADD or MUL, got {op}")
+    if mode not in SCAN_MODES:
+        raise ValueError(f"scan mode must be one of {SCAN_MODES}, got {mode!r}")
+    if mode == "column" and (n is None or n < 0):
+        raise ValueError("a column scan needs a length n >= 0")
+
+
+def field_scan_plain(field, op: int, x: torch.Tensor, reverse: bool = False,
+                     mode: str = "array", n=None) -> torch.Tensor:
+    """Plain version of `field_scan` on any device: the doubling scan (a
+    fold: the pairwise tree) on the plain K1 twin."""
+    _check_scan_args(op, mode, n)
+    return _scan_loop(field, binary_plain, op, x, reverse, mode, n)
+
+
+def field_scan_chain(field, op: int, x: torch.Tensor, reverse: bool = False,
+                     mode: str = "array", n=None) -> torch.Tensor:
+    """The same rounds with every operation a K1 launch on a CUDA tensor:
+    the chain `field_scan` replaced (the smoke times the two)."""
+    _check_scan_args(op, mode, n)
+    return _scan_loop(field, binary, op, x, reverse, mode, n)
+
+
+def _scan_pass(field, op, src, n, rows, flags, out=None, totals=None, carry=None):
+    """One launch of the scan kernel: src = (tensor, word, row and element
+    strides)."""
+    t, ws, rs, es = src
+    ptr = lambda v: None if v is None else v.data_ptr()  # noqa: E731
+    rc = kernels.library().kzg_field_scan(
+        field.kernel_id, op, ptr(out), t.data_ptr(), ws, rs, es, ptr(totals), ptr(carry),
+        n, rows, flags, kernels.stream_handle(t.device))
+    kernels.check_status(rc, f"{field.name} field_scan op {op} n={n} rows={rows}")
+    _SCAN.launches += 1
+
+
+def _scan_tiles(field, op, src, n, rows, flags, total):
+    """The scan (or, with `total`, the fold) of n >= 1 elements a row: one
+    tile pass when n fits a tile; else the tiles' totals, their own scan
+    (or fold), and a pass that runs each tile from its carry. The scan's
+    words are (W, rows, n) in number; with SCAN_PAIR laid out (2, W,
+    rows / 2, n)."""
+    dev = src[0].device
+    tiles = -(-n // SCAN_TILE)
+    if tiles == 1:
+        if total:
+            out = torch.empty((field.W, rows), dtype=torch.int32, device=dev)
+            _scan_pass(field, op, src, n, rows, flags, totals=out)
+        else:
+            out = torch.empty((field.W, rows, n), dtype=torch.int32, device=dev)
+            _scan_pass(field, op, src, n, rows, flags, out=out)
+        return out
+    tot = torch.empty((field.W, rows, tiles), dtype=torch.int32, device=dev)
+    _scan_pass(field, op, src, n, rows, flags, totals=tot)
+    tsrc = (tot, rows * tiles, tiles, 1)
+    if total:
+        return _scan_tiles(field, op, tsrc, tiles, rows, 0, True)
+    carry = _scan_tiles(field, op, tsrc, tiles, rows, 0, False)
+    out = torch.empty((field.W, rows, n), dtype=torch.int32, device=dev)
+    _scan_pass(field, op, src, n, rows, flags, out=out, carry=carry)
+    return out
+
+
+def field_scan(field, op: int, x: torch.Tensor, reverse: bool = False,
+               mode: str = "array", n=None) -> torch.Tensor:
+    """Inclusive scan of `op` (ADD or MUL) along the last axis of Montgomery
+    words, forward or `reverse`:
+      "array":  x (W, *batch, n) -> (W, *batch, n);
+      "column": x (W, *batch), repeated n times along a new last axis
+                without building it -> (W, *batch, n) (MUL: x^1 .. x^n);
+      "total":  x (W, *batch, n) -> (W, *batch), the fold of each row;
+      "pair":   x (W, *batch, n) -> (2, W, *batch, n), the exclusive prefix
+                and the exclusive suffix fold of each row (identity at the
+                ends), in one pass over x (`reverse` is ignored).
+    The plain version for CPU tensors; for CUDA tensors the scan kernel, one
+    to three launches a call up to 2^20 elements a row."""
+    _check_scan_args(op, mode, n)
+    if _device_kind(x) == "cpu":
+        return field_scan_plain(field, op, x, reverse, mode, n)
+    _check_operand(field, x, x.device)
+    if mode == "column":
+        batch = tuple(x.shape[1:])
+        col = x.reshape(field.W, -1).contiguous()  # a column is W x rows words
+        rows = col.shape[1]
+        src = (col, rows, 1, 0)
+        shape = (field.W,) + batch + (n,)
+    else:
+        if x.dim() < 2:
+            raise kernels.KernelError(f"{field.name} field_scan: expected (W, ..., n) words")
+        n = x.shape[-1]
+        batch = tuple(x.shape[1:-1])
+        flat = x.contiguous().reshape(field.W, -1, n)
+        rows = flat.shape[1]
+        src = (flat, rows * n, n, 1)
+        shape = (field.W,) + batch + (() if mode == "total" else (n,))
+        if mode == "pair":
+            rows, shape = 2 * rows, (2,) + shape
+    if rows > 65535:
+        raise kernels.KernelError(f"{field.name} field_scan: {rows} rows, at most 65535")
+    if rows == 0 or n == 0:
+        if mode == "total":
+            return _identity(field, op, batch, x.device)
+        return torch.empty(shape, dtype=torch.int32, device=x.device)
+    flags = (SCAN_PAIR | SCAN_EXCLUSIVE) if mode == "pair" else (SCAN_REVERSE if reverse else 0)
+    return _scan_tiles(field, op, src, n, rows, flags, mode == "total").reshape(shape)
 
 
 # ---- K5: one NTT butterfly stage ----------------------------------------------------

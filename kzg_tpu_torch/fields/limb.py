@@ -16,10 +16,13 @@ Ring ops (`add`, `sub`, `mul`, `sqr`, `mul_const`, `to_mont`, `from_mont`)
 go through kernel K1 on CUDA tensors and through its plain PyTorch twin on
 CPU tensors (`fields/cuda_field.py`), and so does `pow_static` (with `inv`)
 through K1's Fermat chain, one launch a power (`cuda_field.field_pow`).
-Everything else here (`batch_inv`, the prefix scans, `sum_last`) is plain
-tensor code whose field math is those ops. `as_plain()` gives a twin of the
-field whose ops are the plain versions on every device (the reference that
-`chip_smoke.py` holds the kernels against on the card).
+The prefix scans (`prefix_mul`, `prefix_add`, `powers`) and `sum_last` go
+through the scan kernel (`cuda_field.field_scan`, one to three launches a
+call); `batch_inv` is Montgomery's trick on one pair scan (the exclusive
+prefix and suffix products of each row in one pass), one `field_pow` and
+three K1 products. `as_plain()` gives a twin of the field whose ops are the plain
+versions on every device (the reference that `chip_smoke.py` holds the
+kernels against on the card).
 """
 
 import numpy as np
@@ -184,63 +187,41 @@ class LimbField:
         """Fermat inverse a^(m-2); inv(0) = 0 by convention."""
         return self.pow_static(a, self.modulus - 2)
 
-    def _prefix_scan(self, op, x, reverse: bool = False):
-        """Inclusive running fold of `op` along the last axis: a doubling
-        scan (ceil(log2 n) rounds of one whole-array op each)."""
-        n = x.shape[-1]
-        if n == 1:
-            return x
-        if reverse:
-            x = torch.flip(x, dims=(-1,))
-        idx = torch.arange(n, device=x.device)
-        s = 1
-        while s < n:
-            shifted = torch.roll(x, s, dims=-1)
-            x = torch.where(idx >= s, op(x, shifted), x)
-            s <<= 1
-        if reverse:
-            x = torch.flip(x, dims=(-1,))
-        return x
+    def _scan(self, op, x, reverse=False, mode="array", n=None):
+        fn = cuda_field.field_scan_plain if self.plain else cuda_field.field_scan
+        return fn(self, op, x, reverse, mode, n)
 
     def prefix_mul(self, x, reverse: bool = False):
-        """Inclusive running product along the last axis, log-depth."""
-        return self._prefix_scan(self.mul, x, reverse)
+        """Inclusive running product along the last axis."""
+        return self._scan(cuda_field.MUL, x, reverse)
 
     def prefix_add(self, x, reverse: bool = False):
-        """Inclusive running sum along the last axis, log-depth."""
-        return self._prefix_scan(self.add, x, reverse)
+        """Inclusive running sum along the last axis."""
+        return self._scan(cuda_field.ADD, x, reverse)
+
+    def powers(self, col, n: int):
+        """x^1 .. x^n of a (W, *batch) column along a new last axis, the
+        running product of the column broadcast n times (never built)."""
+        return self._scan(cuda_field.MUL, col, mode="column", n=n)
 
     def sum_last(self, a):
-        """Sum of field elements along the last axis: a pairwise tree of
-        field adds (log-depth; the JAX package's raw-limb-sum trick relies on
-        16-bit limbs with headroom that full 32-bit words do not have)."""
-        while a.shape[-1] > 1:
-            if a.shape[-1] % 2:
-                a = torch.cat([a, torch.zeros_like(a[..., :1])], dim=-1)
-            a = self.add(a[..., 0::2], a[..., 1::2])
-        return a[..., 0]
+        """Sum of field elements along the last axis."""
+        return self._scan(cuda_field.ADD, a, mode="total")
 
     def batch_inv(self, a):
-        """Inversion along the LAST axis with a pairwise product tree
-        (Montgomery's trick in tree form, as `kzg_tpu/fields/limb.py:406`):
-        up-sweep of pairwise products, one Fermat inverse at the root,
-        down-sweep to the leaves. inv(0) = 0 elementwise."""
+        """Inversion along the LAST axis by Montgomery's trick in scans:
+        zeros replaced by one, the exclusive prefix and suffix products
+        P_{<i}, S_{>i} (one pair scan), one Fermat inverse of each row's total
+        T = P_{<n-1} x_{n-1}; inv_i = P_{<i} S_{>i} T^-1, and inv(0) = 0
+        elementwise (the words of `kzg_tpu/fields/limb.py:406`'s product
+        tree: an inverse is unique)."""
+        n = a.shape[-1]
+        if n == 0:
+            return a
         zero_mask = self.is_zero(a)
-        batch = a.shape[1:]
-        x = torch.where(zero_mask[None], self.one(batch, a.device), a)
-        n = x.shape[-1]
-        npow = 1 << max(0, (n - 1).bit_length())
-        if npow != n:
-            pad = self.one(tuple(batch[:-1]) + (npow - n,), a.device)
-            x = torch.cat([x, pad], dim=-1)
-        levels = [x]
-        while x.shape[-1] > 1:
-            x = self.mul(x[..., 0::2], x[..., 1::2])
-            levels.append(x)
-        inv = self.inv(x)
-        for lev in levels[-2::-1]:
-            inv_left = self.mul(inv, lev[..., 1::2])
-            inv_right = self.mul(inv, lev[..., 0::2])
-            inv = torch.stack([inv_left, inv_right], dim=-1).reshape(lev.shape)
-        inv = inv[..., :n]
-        return torch.where(zero_mask[None], torch.zeros_like(inv), inv)
+        x = torch.where(zero_mask[None], self.one((1,) * (a.dim() - 1), a.device), a)
+        pre, suf = self._scan(cuda_field.MUL, x, mode="pair")
+        tinv = self.inv(self.mul(pre[..., n - 1:], x[..., n - 1:]))
+        excl = self.mul(pre, suf)
+        del x, pre, suf  # the pair's two arrays go before the last product
+        return self.mul(excl, tinv).masked_fill_(zero_mask[None], 0)

@@ -32,9 +32,9 @@ BUILD_ROOT = _PKG.parent / "build" / "kzg_tpu_torch"
 SOURCES = ("field_kernels.cu", "point_kernels.cu", "ntt_kernels.cu",
            "point_g2_kernels.cu", "madd_g2_kernels.cu", "madd_multi_g2_kernels.cu",
            "msm_g2_kernels.cu", "horner_g2_kernels.cu", "mxu_kernels.cu", "ladder_kernels.cu",
-           "pointwise_g2_kernels.cu")
+           "pointwise_g2_kernels.cu", "scan_kernels.cu")
 HEADERS = ("field.cuh", "point.cuh", "coop.cuh", "horner.cuh", "horner_schedule.cuh",
-           "ladder.cuh", "pointwise.cuh")
+           "ladder.cuh", "pointwise.cuh", "scan.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -120,6 +120,12 @@ REGISTRY = {
                "kzg_tpu/curve/pallas_ops.py:707"),
         Kernel("g2_ladder", "kzg_tpu_torch/csrc/ladder_kernels.cu",
                "kzg_tpu/curve/pallas_ops.py:707"),
+        # the rounds of K1 launches of _prefix_scan / sum_last, a few tile passes
+        Kernel("field_scan", "kzg_tpu_torch/csrc/scan_kernels.cu",
+               "kzg_tpu/fields/pallas_field.py:295"),
+        # the K1 chain of the linear division and the evaluation, a few tile passes
+        Kernel("fr_horner", "kzg_tpu_torch/csrc/scan_kernels.cu",
+               "kzg_tpu/fields/pallas_field.py:295"),
     )
 }
 
@@ -248,6 +254,10 @@ _SIGNATURES = {
     # (ox, oy, oz, table x, table y, digits, p_inf bytes, windows, c, entries, lanes, stream)
     "kzg_g1_ladder": (_P,) * 7 + (_I, _I, _I, _N, _P),
     "kzg_g2_ladder": (_P,) * 7 + (_I, _I, _I, _N, _P),
+    # (field, op, out, in, word / row / element strides, totals, carry, n, rows, reverse, stream)
+    "kzg_field_scan": (_I, _I, _P, _P, _N, _N, _N, _P, _P, _N, _I, _I, _P),
+    # (q, rem, totals, xpow, f, f word / row strides, x, carry in, tile carry, n, k, stream)
+    "kzg_fr_horner": (_P,) * 5 + (_N, _N) + (_P,) * 3 + (_N, _I, _P),
 }
 
 

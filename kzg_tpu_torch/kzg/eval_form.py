@@ -213,7 +213,7 @@ def _omega_powers(dom: Domain, w: int, device) -> torch.Tensor:
     """[1, w, ..., w^(d-1)] as (8, d) Montgomery words: a running product
     on the device, as the reference's prefix_mul of a broadcast column."""
     col = torch.from_numpy(FR.encode([w])).to(device)
-    pw = FR.prefix_mul(col.expand(FR.W, dom.d).contiguous())
+    pw = FR.powers(col[:, 0], dom.d)
     return torch.cat([FR.one((1,), device), pw[:, : dom.d - 1]], dim=1)
 
 

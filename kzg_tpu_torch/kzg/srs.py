@@ -306,9 +306,9 @@ def fixed_base_tables(c: int, w_count: int, device=None):
 
 def _setup_digits(n: int, c: int, s_mont: torch.Tensor, base_mont=None) -> torch.Tensor:
     """(W, n) window digits of base * s^0 .. base * s^(n-1) (base = 1 when
-    None), from s as an (8, 1) Montgomery column: a log-depth prefix product
-    and `msm.pippenger._digits`."""
-    pw = FR.prefix_mul(s_mont.expand(FR.W, n).contiguous())  # s^1 .. s^n
+    None), from s as an (8, 1) Montgomery column: the running product of the
+    column (`field_scan`) and `msm.pippenger._digits`."""
+    pw = FR.powers(s_mont[:, 0], n)  # s^1 .. s^n
     powers = torch.cat([FR.one((1,), s_mont.device), pw[:, : n - 1]], dim=1)
     if base_mont is not None:
         powers = FR.mul(powers, base_mont)

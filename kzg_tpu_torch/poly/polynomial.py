@@ -2,9 +2,9 @@
 
 Coefficients are an (8, n) int32 tensor of Montgomery Fr words (word axis
 leading, coefficient index on the batch axis) with the degree tracked as a
-host int. The prefix scans and `batch_inv` behind evaluation and linear
-division were XLA, not Pallas, in the JAX package; here they are plain
-tensor code whose field math runs on kernel K1 for CUDA tensors.
+host int. Evaluation and linear division, XLA scans over the K1 kernel in
+the JAX package, run on the Horner kernel `fr_horner` (`poly/horner.py`), at any number of
+points.
 Multiplication is NTT-based at every size (`_mul_ntt`, kernel K5 in every
 butterfly stage); long division is a schoolbook loop for short quotients
 and Newton-inverse division above `newton_div_threshold` (poly/newton.py).
@@ -18,6 +18,7 @@ import torch
 from ..config import resolve_device
 from ..fields import FR
 from ..ntt import Domain
+from .horner import fr_horner
 
 
 def _pad_to(c: torch.Tensor, n: int) -> torch.Tensor:
@@ -51,49 +52,16 @@ def _mul_naive(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _eval_many(coeffs: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
-    """Evaluate one polynomial (8, n) at points (8, k) -> (8, k).
-
-    Chunked power method (`kzg_tpu/poly/polynomial.py:93-118`): inner
-    products against a power table of width c = min(4096, n), Horner in x^c
-    over the chunks, high to low."""
-    n = coeffs.shape[-1]
-    k = pts.shape[-1]
-    c = min(4096, n)
-    npad = -(-n // c) * c
-    coeffs = _pad_to(coeffs, npad)
-    base = pts[..., None].expand(FR.W, k, c)
-    pw = FR.prefix_mul(base)  # pts^1 .. pts^c
-    powers = torch.cat([FR.one((k, 1), pts.device), pw[..., : c - 1]], dim=-1)
-    x_c = pw[..., c - 1]
-    acc = FR.zeros((k,), pts.device)
-    for j in range(npad // c - 1, -1, -1):
-        chunk = coeffs[:, j * c:(j + 1) * c]
-        inner = FR.sum_last(FR.mul(chunk[:, None, :], powers))
-        acc = FR.add(FR.mul(acc, x_c), inner)
-    return acc
+    """Evaluate one polynomial (8, n) at points (8, k) -> (8, k)
+    (`kzg_tpu/poly/polynomial.py:93-118`) by `fr_horner`'s remainder."""
+    return fr_horner(coeffs, pts, rem_only=True)[1]
 
 
 def _div_by_linear(f: torch.Tensor, x: torch.Tensor):
     """Quotient and remainder of f / (X - x), x of shape (8, k)
-    (`kzg_tpu/poly/polynomial.py:121-145`).
-
-    q_j = sum_{i>j} f_i x^{i-j-1} = xinv^{j+1} * suffix_sum(f_i x^i)_{j+1},
-    log-depth; the x == 0 column falls back to a coefficient shift.
+    (`kzg_tpu/poly/polynomial.py:121-145`), by `fr_horner`.
     Returns (8, k, n-1) quotients and (8, k) remainders f(x)."""
-    n = f.shape[-1]
-    k = x.shape[-1]
-    xb = x[..., None].expand(FR.W, k, n)
-    pw = FR.prefix_mul(xb)  # x^1 .. x^n
-    powx = torch.cat([FR.one((k, 1), x.device), pw[..., : n - 1]], dim=-1)
-    t = FR.mul(f[:, None, :], powx)  # f_i x^i
-    s = FR.prefix_add(t, reverse=True)  # inclusive suffix sums
-    rem = s[..., 0]
-    xinv = FR.batch_inv(x)
-    pwinv = FR.prefix_mul(xinv[..., None].expand(FR.W, k, n - 1))
-    q = FR.mul(s[..., 1:], pwinv)
-    zero = FR.is_zero(x)[None, :, None]
-    q = torch.where(zero, f[:, None, 1:].expand_as(q), q)
-    return q, rem
+    return fr_horner(f, x)
 
 
 def _long_division(f: torch.Tensor, d: torch.Tensor, nf: int, nd: int):
@@ -263,7 +231,7 @@ class Polynomial:
     def eval_many(self, pts):
         """Evaluate at (8, k) points -> (8, k) (multi_eval parity,
         polynomial.rs:229-233). Large k on large polynomials goes through
-        the remainder tree; otherwise the direct chunked power method."""
+        the remainder tree; otherwise Horner's rule at every point."""
         k = pts.shape[-1]
         if k >= 64 and self.num_coeffs() * k >= (1 << 22):
             from .subproduct import multi_eval_tree

@@ -3,6 +3,11 @@ exact, K2 in both modes (narrow and wide, at widths straddling the
 crossover, its edge cases in both halves of a block), K3 and the bucket
 loop also on skewed digits, K4 at the window join's edge cases, K8 also in its cooperative mode, K1's Fermat chain
 (`field_pow`) and the digit ladder (G1 and G2, also at its edge cases);
+the scan kernel `field_scan` (Fr and Fp, mul and add, forward and
+reverse, array, column, total and pair modes) and the Horner kernel
+`fr_horner` (division and remainder alone, a zero x, a carry in, no
+points and more than a launch holds), at ragged sizes and 2^15, and their
+refusals;
 the matmul-DFT NTT and
 device setup on the card; the default device; and no fallback when the
 kernel build fails.
@@ -30,6 +35,7 @@ from kzg_tpu_torch.curve import (
 from kzg_tpu_torch.fields import FP, FR, cuda_field
 from kzg_tpu_torch.msm import msm_g1, msm_g2, pippenger
 from kzg_tpu_torch.ntt import Domain, mxu
+from kzg_tpu_torch.poly import horner
 
 pytestmark = pytest.mark.cuda
 
@@ -379,6 +385,119 @@ def test_field_pow(dev, field, mod, n):
     assert after["field_elementwise"] == before["field_elementwise"] + 1  # the decode
 
 
+SCAN_SIZES = [1, 2, 3, 31, 32, 33, 255, 1000, 1024, 1025, 4097, 1 << 15]
+
+
+def _scan_passes(n):
+    """Tile passes of one scan: one tile, or totals, their scan and a pass."""
+    return 1 if n <= cuda_field.SCAN_TILE else 3
+
+
+@pytest.mark.parametrize("n", SCAN_SIZES)
+@pytest.mark.parametrize("field,mod", [(FR, R), (FP, P)], ids=["Fr", "Fp"])
+def test_field_scan(dev, field, mod, n):
+    """The scan kernel against its plain version in every mode, rows 1 and
+    3 (edges 0, 1, m - 1 first), with its launches a call."""
+    x = torch.from_numpy(field.encode(_ints(50 + n, mod, 3 * max(n, 3))[:3 * n]))
+    x = x.reshape(field.W, 3, n).to(dev)
+    for rows in (x[:, :1], x):
+        for op in (cuda_field.ADD, cuda_field.MUL):
+            for reverse in (False, True):
+                before = kernels.launch_counts()["field_scan"]
+                got = cuda_field.field_scan(field, op, rows, reverse)
+                assert kernels.launch_counts()["field_scan"] == before + _scan_passes(n)
+                assert _equal(got, cuda_field.field_scan_plain(field, op, rows, reverse))
+            assert _equal(cuda_field.field_scan(field, op, rows, mode="total"),
+                          cuda_field.field_scan_plain(field, op, rows, mode="total"))
+            col = rows[..., n // 2]
+            assert _equal(cuda_field.field_scan(field, op, col, mode="column", n=n),
+                          cuda_field.field_scan_plain(field, op, col, mode="column", n=n))
+    assert field.decode(field.sum_last(x[:, 0])) == [sum(field.decode(x[:, 0])) % mod]
+
+
+@pytest.mark.parametrize("field,mod", [(FR, R), (FP, P)], ids=["Fr", "Fp"])
+def test_batch_inv_on_scans(dev, field, mod):
+    vals = _ints(60, mod, 2 * 777)
+    vals[5] = vals[700] = 0
+    a = torch.from_numpy(field.encode(vals)).reshape(field.W, 2, 777).to(dev)
+    got = field.batch_inv(a)
+    assert field.decode(got) == [pow(v, -1, mod) if v else 0 for v in vals]
+    assert _equal(got, field.as_plain().batch_inv(a))
+
+
+HORNER_SIZES = [1, 2, 3, 33, 1000, 1023, 1024, 4097, 1 << 15]
+
+
+@pytest.mark.parametrize("n", HORNER_SIZES)
+def test_fr_horner(dev, n):
+    """The Horner kernel against its plain version: division and remainder
+    alone, 3 points (one of them 0), with and without a carry in."""
+    f = _fr_words(dev, 70 + n, (n,))
+    x = _fr_words(dev, 71, (3,))
+    x[:, 1] = 0
+    carry = _fr_words(dev, 72, (3,))
+    for cin in (None, carry):
+        for rem_only in (False, True):
+            got = horner.fr_horner(f, x, cin, rem_only)
+            want = horner.fr_horner_plain(f, x, cin, rem_only)
+            assert got[0] is None if rem_only else _equal(got[0], want[0])
+            assert _equal(got[1], want[1])
+    before = kernels.launch_counts()["fr_horner"]
+    horner.fr_horner(f, x[:, :1])
+    assert kernels.launch_counts()["fr_horner"] == before + (1 if n <= cuda_field.SCAN_TILE else 3)
+
+
+@pytest.mark.parametrize("k", [0, horner.MAX_POINTS + 2])
+def test_fr_horner_points_beyond_one_launch(dev, k):
+    """No points, and more points than a launch's grid holds (split into
+    launches of MAX_POINTS): equal to the plain version."""
+    f = _fr_words(dev, 73, (5,))
+    x = _fr_words(dev, 74, (k,))
+    for rem_only in (False, True):
+        got = horner.fr_horner(f, x, rem_only=rem_only)
+        want = horner.fr_horner_plain(f, x, rem_only=rem_only)
+        assert got[0] is None if rem_only else _equal(got[0], want[0])
+        assert _equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("n", [1, 2, 1000, 4097, 1 << 15])
+@pytest.mark.parametrize("field,mod", [(FR, R), (FP, P)], ids=["Fr", "Fp"])
+def test_field_scan_pair(dev, field, mod, n):
+    """The pair mode (each row's exclusive prefix and suffix in one pass,
+    batch_inv's scan) against its plain version at rows 1 and 3, with its
+    launches a call."""
+    x = torch.from_numpy(field.encode(_ints(90 + n, mod, 3 * max(n, 3))[:3 * n]))
+    x = x.reshape(field.W, 3, n).to(dev)
+    for rows in (x[:, :1], x):
+        before = kernels.launch_counts()["field_scan"]
+        got = cuda_field.field_scan(field, cuda_field.MUL, rows, mode="pair")
+        assert kernels.launch_counts()["field_scan"] == before + _scan_passes(n)
+        assert _equal(got, cuda_field.field_scan_plain(field, cuda_field.MUL, rows, mode="pair"))
+
+
+def test_scan_and_horner_refuse_bad_operands(dev):
+    f = _fr_words(dev, 80, (64,))
+    x = _fr_words(dev, 81, (2,))
+    with pytest.raises(kernels.KernelError):
+        cuda_field.field_scan(FR, cuda_field.MUL, f.to(torch.int64))
+    with pytest.raises(kernels.KernelError):
+        cuda_field.field_scan(FP, cuda_field.MUL, f)  # 8 words are not an Fp element
+    with pytest.raises(kernels.KernelError):
+        cuda_field.field_scan(FR, cuda_field.ADD, f[:, :1, None].expand(FR.W, 70000, 1))
+    with pytest.raises(ValueError):
+        cuda_field.field_scan(FR, cuda_field.SUB, f)
+    with pytest.raises(kernels.KernelError):
+        horner.fr_horner(f.to(torch.int64), x)
+    with pytest.raises(kernels.KernelError):
+        horner.fr_horner(f, x.cpu())
+    with pytest.raises(kernels.KernelError):
+        horner.fr_horner(f, x, carry=x[:, :1])
+    with pytest.raises(kernels.KernelError):
+        horner.fr_horner(f[:, :0], x)
+    with pytest.raises(kernels.KernelError):
+        horner.fr_horner(f[:, None].expand(FR.W, 2, 64), x)  # one polynomial for all points
+
+
 LADDER_WINDOWS = {1: 12, 4: 6, 8: 3}
 
 
@@ -507,6 +626,10 @@ def test_no_fallback_when_the_build_fails(dev, monkeypatch):
         cuda_field.mul_chain(FR, 3, x, x)
     with pytest.raises(kernels.KernelError):
         cuda_field.field_pow(FR, x, FR.modulus - 2)
+    with pytest.raises(kernels.KernelError):
+        cuda_field.field_scan(FR, cuda_field.MUL, x[:, 0])
+    with pytest.raises(kernels.KernelError):
+        horner.fr_horner(x[:, 0, :, 0], x[:, 0, :2, 0])
     tx, ty, p_inf, digits = lbench.random_ladder(
         "g1", 4, 2, 3, torch.Generator(device=dev).manual_seed(0))
     with pytest.raises(kernels.KernelError):
