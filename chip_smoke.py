@@ -18,14 +18,16 @@ non-zero before the result line:
                 2^20 (random, `bench.pointwise.edge_pairs` planted first:
                 every pair of cases in both halves of a block), K6 madd on 2^12
                 and 2^11 lanes (skip, infinite, same and opposite lanes
-                planted), K7 madd_multi at the shape a 2^12-point MSM gives
-                it (16 steps over the sub-run lanes of 37 x 128 buckets; neg
-                mask, same and opposite steps planted) and the bucket loop's
-                launches, K3 on the sub-runs of one 2^15 MSM at c = 10 and
+                planted), K7 madd_multi in both modes (narrow: two lanes a
+                block on 16-lane products; wide: one thread a lane) at the
+                shape a 2^12-point MSM gives it (16 steps over the sub-run
+                lanes of 37 x 128 buckets; neg mask, same and opposite steps
+                planted) and the bucket loop's launches in the mode the width
+                picks, K3 on the sub-runs of one 2^15 MSM at c = 10 and
                 of 2^15 all-equal scalars (one bucket a window; that MSM
-                against the native engine's, joined by one K4 launch), K7 at
-                the 2^15 witness's shape (c = 9: its launches, the loop equal
-                to the K3 route), K4 the window join at W = 37, c = 7 and at
+                against the native engine's, joined by one K4 launch), K7 in
+                both modes at the 2^15 witness's shape (c = 9: its launches,
+                the loop equal to the K3 route), K4 the window join at W = 37, c = 7 and at
                 W = 26, c = 10 on real window sums, timed also at the 2^20
                 paths' W = 18, c = 15 and W = 19, c = 14, and held to its
                 twin at the join's edge cases (`bench.horner.CASES`, G1 and
@@ -148,14 +150,19 @@ With --profile, the evaluation-form path, the batched verify of phase 8
 and the 2^15 and 2^20 coefficient-form witnesses are then profiled phase by phase (wall, launches, device time by kernel,
 idle share) and the table written to JSON (default
 build/profile_eval.json).
-Every counted run prints K2's launches by mode. The last lines are the
+Every counted run prints K2's and K7's launches by mode, and requires K7
+launches in the mode its rule picks at the path's shape. The last lines are the
 kernel report (launches summed over the five counted runs; K2 has a row a
 mode, `g1_add_narrow`, `g1_add_wide` and so on, each with its launches in
 that mode, its times at 2^12 points (narrow) or 2^20 (wide), every width
 it was held and timed at, `chain_ms` (the narrow mode's critical path of
 16-lane products, the wide mode's serial one-thread chain, at the measured
 latencies) and `throughput_ms` (all the points' products at the measured
-rate); K4's rows also carry `chain_ms`, its critical path in
+rate); K7 has a row a mode too (`g1_madd_multi_narrow`, ...), its times
+at the 2^12 MSM's shape and `shapes`, each timed shape (the 2^15
+witness's too) with its time, twin time, bound, `chain_ms` (S steps of
+the madd's critical path at those latencies) and `throughput_ms` (the
+live steps' products at the measured rate); K4's rows also carry `chain_ms`, its critical path in
 dependent products at W = 26, c = 10 times the 16-lane Fp product's
 latency; the ladders' `chain_ms` is a lane's critical path at c = 4,
 W = 64 at that latency and `throughput_ms` all the lanes' Fp products at
@@ -529,7 +536,7 @@ def main(argv=None) -> int:
             kname = f"{group}_{op}"
             top = cuda_ops.NARROW_WAVES[kname] * 2 * sm_count * cuda_ops.narrow_min_blocks(
                 1 + g2)
-            modes = {m: {"widths": [], "max_abs_err": 0} for m in cuda_ops.K2_MODES}
+            modes = {m: {"widths": [], "max_abs_err": 0} for m in cuda_ops.MODES}
             gen_k2 = torch.Generator(device=dev).manual_seed(SEED + 20 + g2)
             for w in (1, 3, N_POINT, top, 1 << 20):
                 if w <= N_POINT:
@@ -675,13 +682,53 @@ def main(argv=None) -> int:
             log(f"  K6 {kname} at 2^11 lanes: kernel {report[f'{kname}_2e11_ms']:.4f} ms "
                 f"[{card}]")
 
+        def k7_modes(kname, kernel_fn, plain_fn, cases, g2, label):
+            """K7 in each mode against the twin on `cases` ((acc, q, skip[,
+            neg]) operand tuples), word for word; both modes timed on the
+            first case: the device time (CUDA events around calls the card
+            runs back to back, the stream held while the host enqueues them:
+            `peaks.held_ms`) and a call's time (events around calls as the
+            host makes them); the twin once; the bound from these inputs.
+            The report's row of a mode takes its times at the first shape
+            timed (a 2^12-point MSM's) and lists every shape."""
+            fuse = cases[0][1][0].shape[-2]
+            rows = kinfo[kname].setdefault(
+                "modes", {m: {"shapes": [], "max_abs_err": 0} for m in cuda_ops.MODES})
+            args = cases[0]
+            want, plain_ms = once_ms(lambda: plain_fn(*args))
+            wants = [want] + [plain_fn(*c) for c in cases[1:]]
+            lanes, live = args[2].shape[1], int((~args[2]).sum())
+            muls = POINT_MULS["madd"][g2] * live
+            nbytes = ((6 + 2 * fuse) * (96 if g2 else 48) + 2 * fuse) * lanes
+            b = bound(nbytes, muls * FP_MUL_MADS)
+            for m, row in rows.items():
+                err = max(max_abs_diff(kernel_fn(*c, mode=m), w) for c, w in zip(cases, wants))
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+                check(err == 0, f"K7 {kname} {m} at the {label} shape ({lanes} lanes, S = {fuse}, "
+                      f"{len(cases)} operand sets) equals plain")
+                row["shapes"].append({
+                    "shape": label, "lanes": lanes, "steps": fuse, "live_steps": live, "muls": muls,
+                    "ms": peaks.held_ms(lambda: kernel_fn(*args, mode=m), 10),
+                    "call_ms": cuda_ms(lambda: kernel_fn(*args, mode=m), 10),
+                    "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+                    "bytes_ms": bound(nbytes, 0)[0], "ops_ms": bound(0, muls * FP_MUL_MADS)[0]})
+            mode = cuda_ops.width_mode(cuda_ops._G2K if g2 else cuda_ops._G1K, "madd_multi", lanes,
+                                       dev)
+            log(f"  K7 {kname} at the {label} shape ({lanes} lanes, S = {fuse}, {live} live "
+                f"steps; the rule picks {mode}): device ms (a call's ms) " + ", ".join(
+                    f"{m} {r['shapes'][-1]['ms']:.4f} ({r['shapes'][-1]['call_ms']:.4f})"
+                    for m, r in rows.items())
+                + f", twin {plain_ms:.2f} ms, bound {b[0]:.6f} ms ({b[1]}) [{card}]")
+            return mode
+
         def madd_multi_case(curve, kname, kernel_fn, plain_fn, pts, g2):
             """K7 at the shape a 2^12-point MSM gives it (c = 7: 16 steps over
-            the sub-run lanes of 37 x 128 buckets): the first two launches of
-            the bucket loop on random scalars, from infinity and from the
-            first one's sums; then the second with a neg mask, a lane whose
-            step adds the accumulator's own point and a lane that adds its
-            opposite. Then the whole loop, its K7 launches counted."""
+            the sub-run lanes of 37 x 128 buckets), in both modes: the first
+            two launches of the bucket loop on random scalars, from infinity
+            and from the twin's sums of the first; then the second with a neg
+            mask, a lane whose step adds the accumulator's own point and a
+            lane that adds its opposite. Then the whole loop, its K7
+            launches counted."""
             c7 = pippenger.effective_window(n)
             fuse = get_config().msm_fuse_steps
             ints = [rng.randrange(R) for _ in range(n)]
@@ -690,49 +737,40 @@ def main(argv=None) -> int:
             runs = pippenger.split_runs(inputs[2], inputs[3], n)
             q0, skip0 = pippenger.loop_chunk(inputs[0], inputs[1], runs, 0, fuse)
             q1, skip1 = pippenger.loop_chunk(inputs[0], inputs[1], runs, fuse, fuse)
-            q1 = tuple(t.contiguous() for t in q1)
+            q0, q1 = (tuple(t.contiguous() for t in q) for q in (q0, q1))
             acc0 = curve.infinity((runs.pos.numel(),), dev)
-            acc1 = kernel_fn(acc0, q0, skip0)
-            err = max_abs_diff(acc1, plain_fn(acc0, q0, skip0))
-            got = kernel_fn(acc1, q1, skip1)
-            err = max(err, max_abs_diff(got, plain_fn(acc1, q1, skip1)))
+            acc1 = plain_fn(acc0, q0, skip0)
             lanes = runs.pos.numel()
-            check(err == 0, f"K7 {kname} S={fuse}, {lanes} sub-run lanes (c = {c7}) "
-                  "equals plain on two launches of the bucket loop")
             ax, ay, ainf = curve.to_affine(acc1)
             check(not bool(ainf[5]) and not bool(ainf[6]), "planted lanes hold points")
+            q_p = tuple(t.clone() for t in q1)
             skip_p = skip1.clone()
             gen_m = torch.Generator(device=dev).manual_seed(SEED + 7)
             neg = torch.rand(skip1.shape, generator=gen_m, device=dev) < 0.3
             for b, negate in ((5, False), (6, True)):
-                q1[0][..., 0, b] = ax[..., b]
-                q1[1][..., 0, b] = ay[..., b]
+                q_p[0][..., 0, b] = ax[..., b]
+                q_p[1][..., 0, b] = ay[..., b]
                 skip_p[0, b] = False
                 skip_p[1:, b] = True
                 neg[0, b] = negate
-            got = kernel_fn(acc1, q1, skip_p, neg)
-            err = max(err, max_abs_diff(got, plain_fn(acc1, q1, skip_p, neg)))
-            inf = curve.is_inf(got)
-            check(err == 0 and bool(inf[6]) and not bool(inf[5]),
-                  f"K7 {kname} with neg mask: P + P doubles, P + (-P) is infinity, equals plain")
-            kinfo[kname].update(
-                max_abs_err=err,
-                ms=cuda_ms(lambda: kernel_fn(acc1, q1, skip1), 10),
-                plain_ms=cuda_ms(lambda: plain_fn(acc1, q1, skip1), 1),
-                bound=bound(((6 + 2 * fuse) * (96 if g2 else 48) + 2 * fuse) * lanes,
-                            POINT_MULS["madd"][g2] * FP_MUL_MADS * int((~skip1).sum())),
-            )
+            inf = curve.is_inf(plain_fn(acc1, q_p, skip_p, neg))
+            check(bool(inf[6]) and not bool(inf[5]),
+                  f"K7 {kname} twin with neg mask: P + P doubles, P + (-P) is infinity")
+            mode = k7_modes(kname, kernel_fn, plain_fn,
+                            [(acc1, q1, skip1), (acc0, q0, skip0), (acc1, q_p, skip_p, neg)], g2,
+                            f"2^{n.bit_length() - 1} MSM (launch 2 of the loop, c = {c7})")
             # the whole MSM on this route, and K4 at its window count
-            before = kernels.launch_counts()[kname]
+            before, before_m = kernels.launch_counts()[kname], kernels.mode_counts()[kname]
             acc = pippenger._bucket_loop(curve, *inputs)
             launches = kernels.launch_counts()[kname] - before
+            took = kernels.mode_counts()[kname][mode] - before_m[mode]
             log(f"  bucket loop 2^{n.bit_length() - 1}, c = {c7} ({kname}): L {runs.run_length}, "
                 f"{lanes} sub-runs, longest {runs.longest}, most sub-runs of a bucket "
-                f"{runs.max_split}; {launches} K7 launches an MSM")
-            check(launches == -(-runs.longest // fuse) <= -(-runs.run_length // fuse),
-                  f"the bucket loop took ceil(longest / S) = {launches} K7 launches")
+                f"{runs.max_split}; {launches} K7 launches an MSM, {took} {mode}")
+            check(launches == took == -(-runs.longest // fuse) <= -(-runs.run_length // fuse),
+                  f"the bucket loop took ceil(longest / S) = {launches} K7 launches, all {mode}")
             s_all = pippenger.weighted_bucket_sum(curve, acc)
-            return ints, s_all, c7
+            return ints, s_all, c7, mode
 
         madd_case(G1, "g1_madd", cuda_ops.madd, cuda_ops.madd_plain, p,
                   gx[:, n:2 * n].contiguous(), gy[:, n:2 * n].contiguous(),
@@ -740,7 +778,7 @@ def main(argv=None) -> int:
 
         # K7 over G1, and K4 at the window count of a 2^12-point MSM
         gs12 = tuple(t[..., :n].contiguous() for t in params.gs)
-        ints12, s_all12, c12 = madd_multi_case(
+        ints12, s_all12, c12, k7_mode12 = madd_multi_case(
             G1, "g1_madd_multi", cuda_ops.madd_multi, cuda_ops.madd_multi_plain, gs12, 0)
         got = cuda_ops.horner_join(s_all12, c12)
         torch.cuda.synchronize()
@@ -867,24 +905,27 @@ def main(argv=None) -> int:
         runs = pippenger.split_runs(inputs[2], inputs[3], nw)
         fuse = get_config().msm_fuse_steps
         q, skip = pippenger.loop_chunk(inputs[0], inputs[1], runs, 0, fuse)
+        q = tuple(t.contiguous() for t in q)
         acc0 = G1.infinity((runs.pos.numel(),), dev)
-        before = kernels.launch_counts()
+        k7_mode_w = k7_modes("g1_madd_multi", cuda_ops.madd_multi, cuda_ops.madd_multi_plain,
+                             [(acc0, q, skip)], 0, f"2^15 witness (launch 1 of the loop, c = {c9})")
+        before, before_m = kernels.launch_counts(), kernels.mode_counts()["g1_madd_multi"]
         loop_acc = pippenger._bucket_loop(G1, *inputs)
         after = kernels.launch_counts()
         k7_launches = after["g1_madd_multi"] - before["g1_madd_multi"]
+        took = kernels.mode_counts()["g1_madd_multi"][k7_mode_w] - before_m[k7_mode_w]
         check(max_abs_diff(loop_acc, cuda_ops.bucket_accumulate(*inputs)) == 0,
               f"bucket loop 2^15 - 1, c = {c9} equals the K3 route word for word")
-        check(k7_launches == -(-runs.longest // fuse) <= -(-runs.run_length // fuse),
-              f"the 2^15 witness's bucket loop took ceil(longest / S) = {k7_launches} K7 launches")
+        check(k7_launches == took == -(-runs.longest // fuse) <= -(-runs.run_length // fuse),
+              f"the 2^15 witness's bucket loop took ceil(longest / S) = {k7_launches} K7 "
+              f"launches, all {k7_mode_w}")
         report.update(
-            k7_witness_2e15_ms=cuda_ms(lambda: cuda_ops.madd_multi(acc0, q, skip), 10),
-            k7_witness_2e15_launches=k7_launches,
+            k7_witness_2e15_launches=k7_launches, k7_witness_2e15_mode=k7_mode_w,
             bucket_loop_witness_2e15_ms=cuda_ms(lambda: pippenger._bucket_loop(G1, *inputs), 3))
         log(f"  K7 at the 2^15 witness shape (c = {c9}): L {runs.run_length}, "
             f"{runs.pos.numel()} sub-run lanes, longest {runs.longest}, most sub-runs of a bucket "
-            f"{runs.max_split}; {k7_launches} K7 launches an MSM (combine: "
-            f"{after['g1_add'] - before['g1_add']} K2 adds), "
-            f"{report['k7_witness_2e15_ms']:.4f} ms a launch, bucket loop "
+            f"{runs.max_split}; {k7_launches} K7 launches an MSM ({k7_mode_w}; combine: "
+            f"{after['g1_add'] - before['g1_add']} K2 adds), bucket loop "
             f"{report['bucket_loop_witness_2e15_ms']:.4f} ms [{card}]")
         del loop_acc, q, skip, acc0
 
@@ -979,7 +1020,7 @@ def main(argv=None) -> int:
 
         # K7 over Fp2, and K4 over Fp2 at the window count of a 2^12-point MSM
         hs12 = tuple(t[..., :n].contiguous() for t in params.hs)
-        ints2, s_all2, c2 = madd_multi_case(
+        ints2, s_all2, c2, k7_mode12_g2 = madd_multi_case(
             G2, "g2_madd_multi", cuda_ops.g2_madd_multi, cuda_ops.g2_madd_multi_plain, hs12, 1)
         hs_host = g2_from_device(params.hs)
         check(g2_from_device(tuple(t[..., None] for t in cuda_ops.horner_join(s_all2, c2)))[0]
@@ -1388,7 +1429,7 @@ def main(argv=None) -> int:
     with phase("launch counts 4-5"):
         counts_single, modes_single = kernels.launch_counts(), kernels.mode_counts()
         log(f"  {counts_single}")
-        log(f"  K2 by mode: {modes_single}")
+        log(f"  K2 and K7 by mode: {modes_single}")
         for k in ("field_elementwise", "field_pow", "field_scan", "fr_horner", "g1_add", "g1_dbl",
                   "g1_bucket_accumulate", "g1_madd_multi", "g1_horner_join"):
             check(counts_single[k] > 0,
@@ -1397,6 +1438,9 @@ def main(argv=None) -> int:
             check(modes_single[k]["narrow"] > 0,
                   f"{k} took its narrow mode {modes_single[k]['narrow']} times on the "
                   "single-opening path")
+        check(modes_single["g1_madd_multi"][k7_mode_w] > 0,
+              f"g1_madd_multi took the mode its rule picks at the witness's shape, {k7_mode_w}, "
+              f"{modes_single['g1_madd_multi'][k7_mode_w]} times on the single-opening path")
 
     # ---- 7-9. the batched opening, counted --------------------------------------------------------
     kernels.reset_launches()
@@ -1484,7 +1528,7 @@ def main(argv=None) -> int:
     with phase("launch counts 7-9"):
         counts_batched, modes_batched = kernels.launch_counts(), kernels.mode_counts()
         log(f"  {counts_batched}")
-        log(f"  K2 by mode: {modes_batched}")
+        log(f"  K2 and K7 by mode: {modes_batched}")
         for k in ("g2_add", "g2_dbl"):  # the batched verify's double-and-add on a few lanes
             check(modes_batched[k]["narrow"] > 0,
                   f"{k} took its narrow mode {modes_batched[k]['narrow']} times on the "
@@ -1650,7 +1694,7 @@ def main(argv=None) -> int:
     with phase("launch counts 11-13"):
         counts_eval, modes_eval = kernels.launch_counts(), kernels.mode_counts()
         log(f"  {counts_eval}")
-        log(f"  K2 by mode: {modes_eval}")
+        log(f"  K2 and K7 by mode: {modes_eval}")
         for k, n_launch in counts_eval.items():
             # a 2^12-point G1 MSM takes the bucket loop on K7, so this run
             # gives the G1 instantiation of K3 nothing; K8 and K9 belong to
@@ -1662,6 +1706,10 @@ def main(argv=None) -> int:
                   f"{k} launched {n_launch} times on the G2 MSM and evaluation-form path")
         check(counts_eval["g1_madd"] == 0 and counts_eval["g2_madd"] == 0,
               "no stand-alone madd launch on the evaluation-form path (the ladder has them)")
+        for k, m in (("g1_madd_multi", k7_mode12), ("g2_madd_multi", k7_mode12_g2)):
+            check(modes_eval[k][m] > 0, f"{k} took the mode its rule picks at a 2^12-point "
+                  f"MSM's shape, {m}, {modes_eval[k][m]} times on the G2 MSM and "
+                  "evaluation-form path")
 
     # ---- 15-17. the probe, the matmul-DFT NTT, device setup and the 2^20 path, counted -----------
     kernels.reset_launches()
@@ -1817,7 +1865,7 @@ def main(argv=None) -> int:
     with phase("launch counts 15-17"):
         counts_big, modes_big = kernels.launch_counts(), kernels.mode_counts()
         log(f"  {counts_big}")
-        log(f"  K2 by mode: {modes_big}")
+        log(f"  K2 and K7 by mode: {modes_big}")
         for k in ("mul_chain", "mxu_reduce", "field_elementwise", "field_scan", "fr_horner",
                   "ntt_stage", "g1_add", "g1_dbl", "g2_add", "g1_bucket_accumulate",
                   "g1_horner_join"):
@@ -1896,7 +1944,7 @@ def main(argv=None) -> int:
 
     with phase(f"launch counts 20"):
         log(f"  {counts_lag}")
-        log(f"  K2 by mode: {modes_lag}")
+        log(f"  K2 and K7 by mode: {modes_lag}")
         for k in ("g1_ladder", "g2_ladder", "field_pow", "field_elementwise", "field_scan",
                   "g1_add", "g2_add"):
             check(counts_lag[k] > 0, f"{k} launched {counts_lag[k]} times on the trusted "
@@ -1905,7 +1953,7 @@ def main(argv=None) -> int:
                   + counts_lag[k] for k in counts_eval}
         mode_totals = {k: {m: sum(run[k][m] for run in (modes_single, modes_batched, modes_eval,
                                                          modes_big, modes_lag))
-                           for m in cuda_ops.K2_MODES} for k in modes_eval}
+                           for m in cuda_ops.MODES} for k in modes_eval}
 
     if args.profile:
         with phase(f"profile of the evaluation-form path 2^{EXP_EVAL} and the batched verify"):
@@ -1963,7 +2011,7 @@ def main(argv=None) -> int:
     # the wide mode's one-thread chain of serial products, each at the
     # latency phase 3 measured; all the points' products at the rate phase
     # 15 measured
-    for kname in mode_totals:
+    for kname in ("g1_add", "g1_dbl", "g2_add", "g2_dbl"):
         g2, op = int(kname.startswith("g2")), kname.split("_")[1]
         prog = horner_schedule.expand(1 + g2)
         for m, row in kinfo[kname]["modes"].items():
@@ -1972,17 +2020,41 @@ def main(argv=None) -> int:
                                else POINT_MULS[op][g2] * latency_us[("Fp", False)] * 1e-3)
             row["throughput_ms"] = (row["points"] * POINT_MULS[op][g2]
                                     / report["fp_mul_per_s"] * 1e3)
+    # K7 by mode, at every timed shape: a lane's S steps, each the madd
+    # program's critical path of 16-lane products (narrow) or the madd's
+    # serial one-thread chain (wide), at the latencies phase 3 measured; the
+    # live steps' products at the rate phase 15 measured. The report's row
+    # of a mode takes the 2^12 shape's numbers, the first it timed.
+    for kname in ("g1_madd_multi", "g2_madd_multi"):
+        g2 = int(kname.startswith("g2"))
+        prog = horner_schedule.expand(1 + g2)
+        for m, row in kinfo[kname]["modes"].items():
+            for sh in row["shapes"]:
+                sh["chain_ms"] = sh["steps"] * (
+                    horner_schedule.critical_products(prog, "madd") * latency_us[("Fp", True)]
+                    if m == "narrow" else POINT_MULS["madd"][g2] * latency_us[("Fp", False)]
+                ) * 1e-3
+                sh["throughput_ms"] = sh["muls"] / report["fp_mul_per_s"] * 1e3
+                log(f"  {kname} {m} at the {sh['shape']} shape: {sh['ms']:.4f} ms, chain "
+                    f"{sh['chain_ms']:.4f} ms, throughput {sh['throughput_ms']:.4f} ms, bound "
+                    f"{sh['bound_ms']:.6f} ms ({sh['bound_by']}; bytes {sh['bytes_ms']:.6f}, "
+                    f"operations {sh['ops_ms']:.6f}) [{card}]")
+            ref = row["shapes"][0]
+            row.update(ms=ref["ms"], plain_ms=ref["plain_ms"], lanes=ref["lanes"],
+                       bound=(ref["bound_ms"], ref["bound_by"]), chain_ms=ref["chain_ms"],
+                       throughput_ms=ref["throughput_ms"])
 
     def report_rows(k):
-        """The kernel's rows of the report: one, or one a mode for K2."""
+        """The kernel's rows of the report: one, or one a mode for K2 and K7."""
         if not k.modes:
             info, name, source, launches = kinfo[k.name], k.name, k.source, counts[k.name]
             rows = [(name, source, launches, info,
                      ("chain_ms", "throughput_ms", "k1_chain_ms", "shapes"))]
         else:
             rows = [(f"{k.name}_{m}", k.modes[m], mode_totals[k.name][m],
-                     kinfo[k.name]["modes"][m], ("points", "chain_ms", "throughput_ms", "widths"))
-                    for m in cuda_ops.K2_MODES]
+                     kinfo[k.name]["modes"][m],
+                     ("points", "lanes", "chain_ms", "throughput_ms", "widths", "shapes"))
+                    for m in cuda_ops.MODES]
         return [{
             "name": name,
             "route": "cuda",

@@ -18,9 +18,9 @@ more under `torch.profiler`: the device's busy time (the sum of the
 kernels' self device time; one stream, so kernels never overlap), the idle
 share (1 - busy / wall) and the device time of K2 (every kernel whose name
 holds `add_kernel`, `dbl_kernel` or `pointwise_`), of K1 (`binary_kernel`,
-`mul_const_kernel`) and of the scan and Horner kernels (`scan_kernel`,
-`horner_kernel`). Paths, with the inputs of `chip_smoke.py`'s counted
-phases (random, from a seed):
+`mul_const_kernel`), of the scan and Horner kernels (`scan_kernel`,
+`horner_kernel`) and of K7 (`madd_multi`, either mode). Paths, with the
+inputs of `chip_smoke.py`'s counted phases (random, from a seed):
   * setup_device(s, 2^20, g2_count=2), and commit and witness at 2^20, the
     witness's linear division alone;
   * commit and witness at 2^15, the witness's evaluation check and linear
@@ -28,6 +28,9 @@ phases (random, from a seed):
     k = 16 (the SRS from setup_device(s, 2^15, g2_count=2^15));
   * the group iNTT of the Lagrange SRS at d = 2^12, G1 and G2, with their
     affine conversion;
+  * the evaluation-form commit and `create_witness` at d = 2^12 (one
+    EIP-4844 blob, against the Lagrange SRS from the secret): a 2^12-point
+    G1 MSM each, on the bucket loop (K7);
   * msm_g2 over 2^12 and 2^15 random scalars.
 Prints the card's name and power limit and one JSON line; writes it to
 --out when given.
@@ -46,7 +49,8 @@ K_BATCH = 16
 # kernels by the names their device functions carry
 GROUPS = {"k2": ("add_kernel", "dbl_kernel", "pointwise_"),
           "k1": ("binary_kernel", "mul_const_kernel"),
-          "scan_horner": ("scan_kernel", "horner_kernel")}
+          "scan_horner": ("scan_kernel", "horner_kernel"),
+          "k7": ("madd_multi",)}
 
 
 def _fr_words(torch, gen, n, dev, R):
@@ -97,6 +101,7 @@ def main(argv=None) -> int:
     from kzg_tpu_torch.curve import G1, G2
     from kzg_tpu_torch.kzg import eval_form
     from kzg_tpu_torch.kzg.coeff_form import KZGProver, KZGVerifier
+    from kzg_tpu_torch.kzg.eval_form import KZGProverEvalForm, compute_lagrange_basis_from_secret
     from kzg_tpu_torch.kzg.srs import setup_device
     from kzg_tpu_torch.msm import msm_g2
     from kzg_tpu_torch.ntt import Domain
@@ -142,6 +147,8 @@ def main(argv=None) -> int:
     s12 = _fr_words(torch, gen, 1 << 12, dev, R)
     s15 = _fr_words(torch, gen, 1 << 15, dev, R)
     hs12 = tuple(t[..., :1 << 12] for t in p15.hs)
+    eprover = KZGProverEvalForm(p15, compute_lagrange_basis_from_secret(SEED, 12, device=dev))
+    evals12 = _fr_words(torch, gen, 1 << 12, dev, R)
 
     paths = {
         "setup_device 2^20": lambda: setup_device(SEED, 1 << 20, g2_count=2, device=dev),
@@ -158,6 +165,8 @@ def main(argv=None) -> int:
             lambda: verifier15.verify_eval_batched(commitment15, bw, xs),
         "group iNTT G1 2^12": lambda: G1.to_affine(eval_form._group_intt(G1, g12, dom12)),
         "group iNTT G2 2^12": lambda: G2.to_affine(eval_form._group_intt(G2, h12, dom12)),
+        "eval-form commit 2^12": lambda: eprover.commit(evals12),
+        "eval-form create_witness 2^12": lambda: eprover.create_witness(evals12, 1234),
         "msm_g2 2^12": lambda: msm_g2(hs12, s12),
         "msm_g2 2^15": lambda: msm_g2(p15.hs, s15),
     }
@@ -183,12 +192,14 @@ def main(argv=None) -> int:
         busy, groups = _profile(torch, fn)
         rows.append({"path": name, "wall_ms": wall, "runs_ms": runs, "device_busy_ms": busy,
                      "k2_device_ms": groups["k2"], "k1_device_ms": groups["k1"],
-                     "scan_horner_device_ms": groups["scan_horner"], "peak_mib": peak_mib,
+                     "scan_horner_device_ms": groups["scan_horner"],
+                     "k7_device_ms": groups["k7"], "peak_mib": peak_mib,
                      "launches": launches, "idle_share": max(0.0, 1 - busy / wall)})
         print(f"[{args.tag}] {name}: wall {wall:.2f} ms (runs "
               f"{', '.join(f'{t:.2f}' for t in runs)}), device busy {busy:.2f} ms, K2 "
               f"{groups['k2']:.3f} ms, K1 {groups['k1']:.3f} ms, scan / Horner "
-              f"{groups['scan_horner']:.3f} ms, idle {rows[-1]['idle_share']:.3f}, peak "
+              f"{groups['scan_horner']:.3f} ms, K7 {groups['k7']:.3f} ms, idle "
+              f"{rows[-1]['idle_share']:.3f}, peak "
               f"{peak_mib:.1f} MiB above resident; launches {launches} [{card}]", flush=True)
     out = {"tag": args.tag, "root": root, "card": card, "build_s": build_s, "paths": rows}
     if args.out:

@@ -1,6 +1,7 @@
-// The programs of K4, of the digit ladder and of K2's narrow mode: dbl-2009-l,
-// add-2007-bl and madd-2007-bl as stages of chains of Fp operations on
-// shared-memory slots of 16 words (see horner.cuh, ladder.cuh, pointwise.cuh).
+// The programs of K4, of the digit ladder and of the narrow modes of K2 and K7:
+// dbl-2009-l, add-2007-bl and madd-2007-bl as stages of chains of Fp operations
+// on shared-memory slots of 16 words (see horner.cuh, ladder.cuh, pointwise.cuh,
+// madd_multi.cuh).
 // Generated by `python -m kzg_tpu_torch.curve.horner_schedule --write`
 // from kzg_tpu_torch/curve/horner_schedule.py; do not edit.
 //

@@ -39,74 +39,9 @@
 
 #pragma once
 
-#include "horner.cuh"
+#include "pair.cuh"
 
 namespace {
-
-constexpr int kLadderLanes = 2;  // ladder lanes a block, one a half-warp
-
-// Shared words between the two lanes' slots: 16 more than the slots, so
-// that the halves of a warp, each reading word j (or the broadcast word i)
-// of its own lane's operand, hit different banks.
-template <class Prog>
-__host__ __device__ constexpr int lane_words() {
-  return kSlotWords * Prog::kSlots + 16;
-}
-
-// Blocks an SM is asked to hold: 32 registers a thread at most (65,536 on
-// an SM) over Fp and Fp2, which ptxas meets with 8 bytes spilled; 40
-// registers left 6 Fp2 blocks an SM where 8 fit.
-template <class Prog>
-__host__ __device__ constexpr int min_blocks() {
-  return 65536 / (32 * 32 * Prog::kWarps);
-}
-
-// Bit 2 h + k set where the coordinate at slot_k of block lane h is
-// non-zero; one barrier. Each warp ORs its lanes' findings, its lane 0
-// leaves them in `votes` (read after the barrier, written again only after
-// further barriers), and every thread ORs the warps'.
-template <class Prog>
-__device__ __forceinline__ unsigned nonzero_bits(const uint32_t* sm, int words, int slot0,
-                                                 int slot1, unsigned* votes) {
-  constexpr int kC = Prog::kComp * kSlotWords;
-  unsigned bits = 0;
-  for (int t = threadIdx.x; t < 2 * kLadderLanes * kC; t += blockDim.x) {
-    const int q = t / kC;
-    if (sm[(q >> 1) * words + kSlotWords * ((q & 1) ? slot1 : slot0) + t % kC] != 0u)
-      bits |= 1u << q;
-  }
-  bits = __reduce_or_sync(0xffffffffu, bits);
-  if ((threadIdx.x & 31) == 0) votes[threadIdx.x >> 5] = bits;
-  __syncthreads();
-  bits = 0;
-  for (int k = 0; k < Prog::kWarps; k++) bits |= votes[k];
-  return bits;
-}
-
-// per block lane h with flags[h] set: the three coordinates at src -> dst
-template <class Prog>
-__device__ __forceinline__ void copy_points(uint32_t* sm, int words, const bool* flags, int dst,
-                                            int src) {
-  constexpr int kP = 3 * Prog::kComp * kSlotWords;
-  for (int t = threadIdx.x; t < kLadderLanes * kP; t += blockDim.x) {
-    uint32_t* s = sm + (t / kP) * words;
-    if (flags[t / kP]) s[kSlotWords * dst + t % kP] = s[kSlotWords * src + t % kP];
-  }
-  __syncthreads();
-}
-
-// per block lane h with flags[h] set: the accumulator (X, Y, Z) = (1, 1, 0)
-template <class Prog>
-__device__ __forceinline__ void set_infinities(uint32_t* sm, int words, const bool* flags) {
-  constexpr int kC = Prog::kComp * kSlotWords;
-  for (int t = threadIdx.x; t < kLadderLanes * 3 * kC; t += blockDim.x) {
-    const int k = t % (3 * kC), w = k % kSlotWords;
-    if (flags[t / (3 * kC)])
-      sm[(t / (3 * kC)) * words + kSlotWords * Prog::kX + k] =
-          (k < 2 * kC && k % kC < kSlotWords && w < Fp::N) ? Fp::one(w) : 0u;
-  }
-  __syncthreads();
-}
 
 // per block lane h with flags[h] set: table entry t[h] of ladder lane
 // i0 + h, from (12[, 2], T, lanes) affine coordinates, -> X2, Y2; with

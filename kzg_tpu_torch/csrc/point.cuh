@@ -16,7 +16,8 @@
 // madd_g2_kernels.cu, madd_multi_g2_kernels.cu and msm_g2_kernels.cu
 // (bucket_accumulate), one nvcc process each, so the long Fp2 compilations
 // run side by side. K4, the window join, has a design of its own
-// (horner.cuh).
+// (horner.cuh), as have the narrow modes of K2 (pointwise.cuh) and K7
+// (madd_multi.cuh).
 //
 // Layouts. A G1 coordinate batch is (12, n) words, a G2 one (12, 2, n), c0
 // then c1 on axis 1. An affine point ROW (the bucket kernel's input) is
@@ -284,20 +285,30 @@ madd_kernel(uint32_t* __restrict__ ox, uint32_t* __restrict__ oy, uint32_t* __re
                  madd(p, Coord<E>::load(x2, n, i), Coord<E>::load(y2, n, i)));
 }
 
-// S masked, optionally negated mixed adds per lane, the accumulator held in
-// registers across the steps: the fused step of the bucket loop.
-// a*: the accumulator batch of n lanes; qx / qy: one coordinate batch of
-// steps * n affine points, step-major (point s of lane i at s * n + i);
-// skip / neg: (steps, n) bytes, skip non-zero leaves the lane as it is,
-// neg non-zero adds -q = (x, -y). Each live step as madd_kernel.
+// K7's wide mode, one thread a lane: S skip-masked, optionally negated
+// mixed adds per lane, the accumulator held in registers across the steps,
+// the fused step of the bucket loop on the launches whose lanes fill the
+// card (the narrow mode, two lanes a block on 16-lane products, is
+// madd_multi.cuh). a*: the accumulator batch of n lanes; qx / qy: one
+// coordinate batch of steps * n affine points, step-major (point s of lane
+// i at s * n + i); skip / neg: (steps, n) bytes, skip non-zero leaves the
+// lane as it is, neg non-zero adds -q = (x, -y); neg may be null. Each live
+// step as madd_kernel.
+//
+// The sweep of bench/madd_multi.py on an H100 (700 W; PERF.md) kept this
+// shape for both groups, against 64-thread blocks, 1-4 resident blocks an
+// SM and the next step's point and masks loaded ahead of the madd: the
+// look-ahead cost registers and bought nothing (G1 within the spread, G2
+// slower with twice the spill), the other shapes were within the spread of
+// builds ptxas reports alike, and 3 blocks an SM (168 registers) slower.
 template <class E>
 __global__ void __launch_bounds__(kPointThreads)
-madd_multi_kernel(uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
-                  uint32_t* __restrict__ oz, const uint32_t* __restrict__ ax,
-                  const uint32_t* __restrict__ ay, const uint32_t* __restrict__ az,
-                  const uint32_t* __restrict__ qx, const uint32_t* __restrict__ qy,
-                  const uint8_t* __restrict__ skip, const uint8_t* __restrict__ neg,
-                  int steps, long long n) {
+madd_multi_wide_kernel(uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
+                       uint32_t* __restrict__ oz, const uint32_t* __restrict__ ax,
+                       const uint32_t* __restrict__ ay, const uint32_t* __restrict__ az,
+                       const uint32_t* __restrict__ qx, const uint32_t* __restrict__ qy,
+                       const uint8_t* __restrict__ skip, const uint8_t* __restrict__ neg,
+                       int steps, long long n) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const long long total = (long long)steps * n;
@@ -306,7 +317,7 @@ madd_multi_kernel(uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
     const long long k = (long long)s * n + i;
     if (skip[k]) continue;
     E y2 = Coord<E>::load(qy, total, k);
-    if (neg[k]) y2 = sub(Coord<E>::zero(), y2);  // 0 stays 0
+    if (neg && neg[k]) y2 = sub(Coord<E>::zero(), y2);
     acc = madd(acc, Coord<E>::load(qx, total, k), y2);
   }
   store_point<E>(ox, oy, oz, n, i, acc);
@@ -397,12 +408,12 @@ int launch_madd(void* ox, void* oy, void* oz, const void* x1, const void* y1, co
 }
 
 template <class E>
-int launch_madd_multi(void* ox, void* oy, void* oz, const void* ax, const void* ay,
-                      const void* az, const void* qx, const void* qy, const void* skip,
-                      const void* neg, int steps, long long n, void* stream) {
+int launch_madd_multi_wide(void* ox, void* oy, void* oz, const void* ax, const void* ay,
+                           const void* az, const void* qx, const void* qy, const void* skip,
+                           const void* neg, int steps, long long n, void* stream) {
   if (n <= 0 || steps <= 0) return (int)cudaErrorInvalidValue;
-  madd_multi_kernel<E><<<blocks_for(n), kPointThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  madd_multi_wide_kernel<E><<<blocks_for(n), kPointThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint32_t*>(ox), static_cast<uint32_t*>(oy), static_cast<uint32_t*>(oz),
       static_cast<const uint32_t*>(ax), static_cast<const uint32_t*>(ay),
       static_cast<const uint32_t*>(az), static_cast<const uint32_t*>(qx),

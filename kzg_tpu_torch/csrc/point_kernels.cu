@@ -18,14 +18,18 @@
 //     p-infinite / same / opposite cases. It serves the digit ladder
 //     (CurveOps.scalar_mul_digits), where the plain tensor formula was ~25
 //     field-kernel launches and a host read per madd. Bound as K2.
-// K7  kzg_g1_madd_multi           replaces _PointKernels.madd_multi
-//     (pallas_ops.py:275). S skip-masked, optionally negated madds per
-//     bucket lane in one launch, the fused step of the bucket loop that
-//     serves windows of fewer than 1024 buckets. The TPU kernel kept the
-//     accumulator block in VMEM across the minor grid axis; here a thread
-//     keeps its lane's accumulator in registers and reads step s's point
-//     from the step-major (12, S, B) batch, coalesced over lanes. Bound:
-//     the thread's chain of up to S madds (11 Fp multiplications each).
+// K7  kzg_g1_madd_multi / kzg_g1_madd_multi_narrow  replace
+//     _PointKernels.madd_multi (pallas_ops.py:275): S skip-masked,
+//     optionally negated madds per bucket lane in one launch, the fused
+//     step of the bucket loop that serves windows of fewer than 1024
+//     buckets. Two modes, which cuda_ops picks by the width. Narrow
+//     (madd_multi.cuh): two lanes a block on the ladder's engine, the
+//     accumulator in shared slots, each level's products side by side over
+//     16 lanes each, the next step's point copied in by cp.async while a
+//     step runs; bound by a lane's chain of S madds of 5 dependent 16-lane
+//     products each. Wide (point.cuh): one thread a lane, the
+//     accumulator in registers; bound by the card's multiply throughput
+//     once the lanes fill it (11 Fp multiplications a step).
 // K3  kzg_g1_bucket_accumulate    replaces _PointKernels.bucket_accumulate
 //     (pallas_ops.py:388). One launch for all windows, one thread per
 //     SUB-RUN: msm.pippenger.split_runs cuts each bucket's run of the
@@ -55,6 +59,7 @@
 // allocates nothing, and returns cudaGetLastError() of the launch.
 
 #include "point.cuh"
+#include "madd_multi.cuh"
 #include "pointwise.cuh"
 
 extern "C" {
@@ -88,11 +93,19 @@ int kzg_g1_madd(void* ox, void* oy, void* oz, const void* x1, const void* y1,
   return launch_madd<FpE>(ox, oy, oz, x1, y1, z1, x2, y2, skip, n, stream);
 }
 
-// acc (12, n); qx / qy (12, steps, n); skip / neg (steps, n) bytes
+// acc (12, n); qx / qy (12, steps, n); skip / neg (steps, n) bytes (neg may be null)
 int kzg_g1_madd_multi(void* ox, void* oy, void* oz, const void* ax, const void* ay,
                       const void* az, const void* qx, const void* qy, const void* skip,
                       const void* neg, int steps, long long n, void* stream) {
-  return launch_madd_multi<FpE>(ox, oy, oz, ax, ay, az, qx, qy, skip, neg, steps, n, stream);
+  return launch_madd_multi_wide<FpE>(ox, oy, oz, ax, ay, az, qx, qy, skip, neg, steps, n,
+                                     stream);
+}
+
+int kzg_g1_madd_multi_narrow(void* ox, void* oy, void* oz, const void* ax, const void* ay,
+                             const void* az, const void* qx, const void* qy, const void* skip,
+                             const void* neg, int steps, long long n, void* stream) {
+  return launch_madd_multi_narrow<HornerProgG1>(ox, oy, oz, ax, ay, az, qx, qy, skip, neg,
+                                                steps, n, stream);
 }
 
 // rows (n, 24); order (W * n) int32; pos / len (m) int32 sub-runs; out (12, m)

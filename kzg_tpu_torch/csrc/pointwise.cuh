@@ -35,43 +35,9 @@
 
 #pragma once
 
-#include "ladder.cuh"
+#include "pair.cuh"
 
 namespace {
-
-// point i0 + h of a (12[, 2], n) batch -> the three coordinates at `slot` of
-// block lane h, words N..15 zero; a lane past n loads zeros
-template <class Prog>
-__device__ __forceinline__ void load_points(uint32_t* sm, int words, int slot,
-                                            const uint32_t* x, const uint32_t* y,
-                                            const uint32_t* z, long long n, long long i0) {
-  constexpr int kC = Prog::kComp * kSlotWords;
-  for (int t = threadIdx.x; t < kLadderLanes * 3 * kC; t += blockDim.x) {
-    const int h = t / (3 * kC), e = t % (3 * kC);
-    const int coord = e / kC, comp = (e % kC) / kSlotWords, w = e % kSlotWords;
-    uint32_t v = 0u;
-    if (w < Fp::N && i0 + h < n)
-      v = (coord == 0 ? x : coord == 1 ? y : z)[(long long)(Prog::kComp * w + comp) * n + i0 + h];
-    sm[h * words + kSlotWords * slot + e] = v;
-  }
-}
-
-// block lane h's three coordinates at slot src[h] (src[h] < 0: infinity,
-// (1, 1, 0)) -> point i0 + h of a (12[, 2], n) batch
-template <class Prog>
-__device__ __forceinline__ void store_points(const uint32_t* sm, int words, const int* src,
-                                             uint32_t* x, uint32_t* y, uint32_t* z, long long n,
-                                             long long i0) {
-  constexpr int kC = Prog::kComp * kSlotWords;
-  for (int t = threadIdx.x; t < kLadderLanes * 3 * kC; t += blockDim.x) {
-    const int h = t / (3 * kC), e = t % (3 * kC);
-    const int coord = e / kC, comp = (e % kC) / kSlotWords, w = e % kSlotWords;
-    if (w >= Fp::N || i0 + h >= n) continue;
-    const uint32_t v = src[h] >= 0 ? sm[h * words + kSlotWords * src[h] + e]
-                       : (coord < 2 && comp == 0) ? Fp::one(w) : 0u;
-    (coord == 0 ? x : coord == 1 ? y : z)[(long long)(Prog::kComp * w + comp) * n + i0 + h] = v;
-  }
-}
 
 template <class Prog>
 __global__ void __launch_bounds__(32 * Prog::kWarps, min_blocks<Prog>())
@@ -131,16 +97,12 @@ pointwise_dbl_kernel(uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
   store_points<Prog>(smem, kWords, src, ox, oy, oz, n, i0);
 }
 
-inline unsigned pointwise_blocks(long long n) {
-  return (unsigned)((n + kLadderLanes - 1) / kLadderLanes);
-}
-
 template <class Prog>
 int launch_pointwise_add(void* ox, void* oy, void* oz, const void* x1, const void* y1,
                          const void* z1, const void* x2, const void* y2, const void* z2,
                          long long n, void* stream) {
   if (n <= 0 || n >= (1ll << 32)) return (int)cudaErrorInvalidValue;
-  pointwise_add_kernel<Prog><<<pointwise_blocks(n), 32 * Prog::kWarps, 0,
+  pointwise_add_kernel<Prog><<<pair_blocks(n), 32 * Prog::kWarps, 0,
                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint32_t*>(ox), static_cast<uint32_t*>(oy), static_cast<uint32_t*>(oz),
       static_cast<const uint32_t*>(x1), static_cast<const uint32_t*>(y1),
@@ -153,7 +115,7 @@ template <class Prog>
 int launch_pointwise_dbl(void* ox, void* oy, void* oz, const void* x, const void* y,
                          const void* z, long long n, void* stream) {
   if (n <= 0 || n >= (1ll << 32)) return (int)cudaErrorInvalidValue;
-  pointwise_dbl_kernel<Prog><<<pointwise_blocks(n), 32 * Prog::kWarps, 0,
+  pointwise_dbl_kernel<Prog><<<pair_blocks(n), 32 * Prog::kWarps, 0,
                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint32_t*>(ox), static_cast<uint32_t*>(oy), static_cast<uint32_t*>(oz),
       static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(y),

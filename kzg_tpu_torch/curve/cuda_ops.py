@@ -19,7 +19,7 @@ K2 `add` / `dbl` (G1) and `g2_add` / `g2_dbl` (G2) replace
 ncomp = 1 and 2; the group law of `:81-196`), the formulas and
 exceptional-case selects verbatim (opposite -> (1, 1, 0), infinity operands
 pass the other point through). Two modes, picked by the width
-(`k2_mode`): most launches are narrow (the levels of the MSM's reductions
+(`width_mode`): most launches are narrow (the levels of the MSM's reductions
 and combines, the ladder table's adds, the batched verify's
 double-and-add), where one thread a point leaves the card nearly empty and
 the time is one thread's chain of 144-step serial CIOS products. There the
@@ -84,10 +84,19 @@ than 1024 buckets (`msm.pippenger._bucket_loop`). The loop runs over the
 sub-run lanes of `split_runs`, so it takes ceil(longest sub-run / S) <=
 ceil(L / S) launches whatever the digits, then the same combine as K3. The
 TPU kernel revisited the accumulator block in VMEM across a minor grid
-axis of S steps; here one thread per lane keeps the accumulator in
-registers and reads step s's point from the step-major (12[, 2], S, M)
-batch, coalesced over lanes. Bound: one thread's chain of up to S madds,
-and the lanes' total madds at the multiply rate.
+axis of S steps. Here, as K2, two modes by the width (`width_mode`): the
+bucket loop's lanes (a few thousand sub-runs) leave one thread a lane with
+most SMs idle and each step's 11 products (29 over Fp2) in a serial chain,
+so the NARROW kernel (`csrc/madd_multi.cuh`) runs two lanes a block on the
+ladder's engine, the accumulator in shared slots across the steps, each
+step's madd program over 16-lane products (5 / 7 products on the critical
+path) and the next step's point copied in by cp.async while a step runs;
+the WIDE kernel (`csrc/point.cuh`) keeps one thread a lane and
+its accumulator in registers, once the lanes fill more than `NARROW_WAVES`
+waves of the narrow one (loading the next step's point ahead only cost
+registers there: `bench.madd_multi`'s sweep). Both read step
+s's point from the step-major (12[, 2], S, M) batch and the (S, M) skip and
+neg bytes (no neg array when no step is negated).
 
 The digit ladder (`ladder`, counted as `g1_ladder` / `g2_ladder`,
 `csrc/ladder.cuh`) runs the rounds of `CurveOps.scalar_mul_digits` in one
@@ -187,11 +196,13 @@ def _ptrs(ts):
 
 # ---- K2 / K6: add, dbl, madd ---------------------------------------------------------
 
-K2_MODES = ("narrow", "wide")
-# The most waves of the narrow kernel (SMs x its blocks an SM x 2 points)
-# at which K2 takes it, by kernel: the crossover of `bench.pointwise`, the
-# most waves at which the narrow mode's device time was the shorter (H100).
-NARROW_WAVES = {"g1_add": 3, "g1_dbl": 1, "g2_add": 16, "g2_dbl": 2}
+MODES = ("narrow", "wide")
+# The most waves of the narrow kernel (SMs x its blocks an SM x 2 points or
+# lanes) at which K2 or K7 takes it, by kernel: the crossover of
+# `bench.pointwise` (K2) and `bench.madd_multi` (K7, S = 16), the most waves
+# at which the narrow mode's device time was the shorter (H100).
+NARROW_WAVES = {"g1_add": 3, "g1_dbl": 1, "g2_add": 16, "g2_dbl": 2,
+                "g1_madd_multi": 2, "g2_madd_multi": 4}
 _NARROW_LANES = 2  # points a block of the narrow kernel, one a half-warp
 
 
@@ -203,9 +214,9 @@ def narrow_min_blocks(ncomp: int) -> int:
 
 
 def pointwise_mode(n: int, sm_count: int, min_blocks: int, waves: int) -> str:
-    """K2's mode for a launch of n points: "narrow" while the points fit
+    """The mode for a launch of n points or lanes: "narrow" while they fit
     `waves` waves of the narrow kernel (sm_count x min_blocks blocks of two
-    points each), "wide" above."""
+    each), "wide" above."""
     return "narrow" if n <= waves * sm_count * min_blocks * _NARROW_LANES else "wide"
 
 
@@ -214,12 +225,21 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def k2_mode(group, op: str, n: int, device) -> str:
-    """The mode K2 `op` ("add" or "dbl") takes for n points of `group` on a
-    CUDA device."""
+def width_mode(group, op: str, n: int, device) -> str:
+    """The mode kernel `op` of `group` takes for a launch of n points (K2
+    "add" or "dbl") or bucket lanes (K7 "madd_multi") on a CUDA device."""
     return pointwise_mode(n, _sm_count(device.index if device.index is not None
                                        else torch.cuda.current_device()),
                           narrow_min_blocks(group.ncomp), NARROW_WAVES[f"{group.name}_{op}"])
+
+
+def _pick_mode(group, op, n, device, mode):
+    """`mode` checked, or the mode the width picks (mode None)."""
+    if mode is None:
+        return width_mode(group, op, n, device)
+    if mode not in MODES:
+        raise kernels.KernelError(f"{group.name}_{op}: mode {mode!r} is not one of {MODES}")
+    return mode
 
 
 def _launch(group, op, coords, extra=(), mode=None):
@@ -246,10 +266,7 @@ def _launch(group, op, coords, extra=(), mode=None):
 
 def _k2(group, op, coords, mode):
     """K2 `op` in `mode`, or in the mode the width picks (mode None)."""
-    if mode is None:
-        mode = k2_mode(group, op, coords[0].numel() // group.words, coords[0].device)
-    elif mode not in K2_MODES:
-        raise kernels.KernelError(f"{group.name}_{op}: mode {mode!r} is not one of {K2_MODES}")
+    mode = _pick_mode(group, op, coords[0].numel() // group.words, coords[0].device, mode)
     return _launch(group, op, coords, mode=mode)
 
 
@@ -294,7 +311,7 @@ def madd_plain(p, q_affine, skip):
 def add(p, q, mode=None):
     """K2 Jacobian add-2007-bl (exceptional cases included), elementwise
     over equal-shaped G1 batches; `mode` ("narrow" or "wide") overrides the
-    one the width picks (`k2_mode`)."""
+    one the width picks (`width_mode`)."""
     return _add(_G1K, p, q, mode)
 
 
@@ -340,7 +357,15 @@ def g2_madd(p, q_affine, skip):
 
 # ---- K7: the fused bucket-loop step ---------------------------------------------------
 
-def _madd_multi(group, acc, q_affine, skip, neg):
+def _mask_bytes(t: torch.Tensor) -> torch.Tensor:
+    """A bool mask as contiguous bytes at a 4-byte aligned address: the
+    narrow kernel copies the mask in 32-bit words, and a slice (`m[1:]` of
+    an odd width) can start at any byte."""
+    b = t.reshape(-1).contiguous().view(torch.uint8)
+    return b if b.data_ptr() % 4 == 0 else b.clone()
+
+
+def _madd_multi(group, acc, q_affine, skip, neg, mode=None):
     if _is_cpu(acc[0]):
         return group.plain.madd_multi(acc, q_affine, skip, neg)
     what = f"{group.name}_madd_multi"
@@ -353,9 +378,7 @@ def _madd_multi(group, acc, q_affine, skip, neg):
         raise kernels.KernelError(
             f"{what}: skip must be a bool (S, {batch}) mask, got {tuple(skip.shape)}")
     steps = skip.shape[0]
-    if neg is None:
-        neg = torch.zeros_like(skip)
-    for t in (skip, neg):
+    for t in (skip,) if neg is None else (skip, neg):
         if t.dtype != torch.bool or t.device != dev or t.shape != skip.shape:
             raise kernels.KernelError(
                 f"{what}: masks must be bool {tuple(skip.shape)} on {dev}, got "
@@ -364,16 +387,18 @@ def _madd_multi(group, acc, q_affine, skip, neg):
         if tuple(t.shape) != lead + (steps,) + batch:
             raise kernels.KernelError(
                 f"{what}: points must be {lead + (steps,) + batch}, got {tuple(t.shape)}")
+    mode = _pick_mode(group, "madd_multi", n, dev, mode)
     if not n or not steps:
         return acc
     ins = [_coord(t, dev, n, what, lead) for t in acc]
     ins += [_coord(t, dev, steps * n, what, lead) for t in q_affine]
-    masks = [t.reshape(-1).contiguous().view(torch.uint8) for t in (skip, neg)]
+    masks = [None if t is None else _mask_bytes(t) for t in (skip, neg)]
     out = [torch.empty_like(ins[0]) for _ in range(3)]
-    rc = group.entry("madd_multi")(*_ptrs(out), *_ptrs(ins), *_ptrs(masks), steps, n,
-                                   kernels.stream_handle(dev))
-    kernels.check_status(rc, what)
-    group.counter("madd_multi").launches += 1
+    entry = group.entry("madd_multi_narrow" if mode == "narrow" else "madd_multi")
+    rc = entry(*_ptrs(out), *_ptrs(ins), *(None if m is None else m.data_ptr() for m in masks),
+               steps, n, kernels.stream_handle(dev))
+    kernels.check_status(rc, f"{what} ({mode})")
+    group.counter("madd_multi").count(mode)
     return tuple(o.reshape(shape) for o in out)
 
 
@@ -385,18 +410,19 @@ def g2_madd_multi_plain(acc, q_affine, skip, neg=None):
     return PLAIN2.madd_multi(acc, q_affine, skip, neg)
 
 
-def madd_multi(acc, q_affine, skip, neg=None):
+def madd_multi(acc, q_affine, skip, neg=None, mode=None):
     """K7 over Fp: acc += q_affine[s] for s = 0 .. S - 1, per lane. acc is a
     G1 Jacobian batch (12, *batch), q_affine = (qx, qy) of (12, S, *batch),
     skip / neg (S, *batch) bool masks (skip keeps the lane, neg adds -q;
-    neg=None adds every point as it is)."""
-    return _madd_multi(_G1K, acc, q_affine, skip, neg)
+    neg=None adds every point as it is); `mode` ("narrow" or "wide")
+    overrides the one the width picks (`width_mode`)."""
+    return _madd_multi(_G1K, acc, q_affine, skip, neg, mode)
 
 
-def g2_madd_multi(acc, q_affine, skip, neg=None):
+def g2_madd_multi(acc, q_affine, skip, neg=None, mode=None):
     """K7 over Fp2: as `madd_multi` with (12, 2, *batch) accumulators and
     (12, 2, S, *batch) points."""
-    return _madd_multi(_G2K, acc, q_affine, skip, neg)
+    return _madd_multi(_G2K, acc, q_affine, skip, neg, mode)
 
 
 # ---- K3: bucket accumulation ----------------------------------------------------------

@@ -1,11 +1,13 @@
 """The program that kernel K4 (`csrc/horner.cuh`) runs for one doubling and
 one addition, the digit ladder (`csrc/ladder.cuh`) for one doubling and
-one mixed addition, and K2's narrow mode (`csrc/pointwise.cuh`) for one
-addition or one doubling, as tables of field operations, and their header.
+one mixed addition, K2's narrow mode (`csrc/pointwise.cuh`) for one
+addition or one doubling, and K7's narrow mode (`csrc/madd_multi.cuh`) for
+one mixed addition a step, as tables of field operations, and their header.
 
 K4 is one block that walks the Horner chain of the window join; the ladder
 kernel runs two lanes of the digit ladder a block on the same engine (one a
-half-warp), and K2's narrow mode two points a block. The warps share the point in shared memory; each warp runs one
+half-warp), K2's narrow mode two points a block and K7's two bucket
+lanes. The warps share the point in shared memory; each warp runs one
 CHAIN of field operations at a time (a Montgomery product or a modular
 add / sub, each spread over 16 lanes a word a lane), and a block barrier
 separates the STAGES. A stage's chains are independent, so they run side by
@@ -28,9 +30,10 @@ linear steps before and after its product included. Over Fp2:
 
 Every value is canonical in [0, p), so any correct formula gives the same
 words: the program equals the plain twins (`CurveOps.window_join`, the
-rounds of `CurveOps.scalar_mul_digits`, `CurveOps.add` / `dbl`) word for
-word, which `simulate_join`, `simulate_ladder`, `simulate_add` and
-`simulate_dbl` check on the CPU with Python integers.
+rounds of `CurveOps.scalar_mul_digits`, `CurveOps.add` / `dbl`,
+`CurveOps.madd_multi`) word for word, which `simulate_join`,
+`simulate_ladder`, `simulate_add`, `simulate_dbl` and `simulate_madd_multi`
+check on the CPU with Python integers.
 
 Regenerate the header after a change here:
 
@@ -411,6 +414,52 @@ def simulate_dbl(prog: Program, ps):
     return out
 
 
+def simulate_madd_multi(prog: Program, accs, qs, skip, neg):
+    """K7's narrow kernel (csrc/madd_multi.cuh) on Python integers, for the
+    lanes of one block (at most two): lane h starts from the Jacobian
+    accumulator accs[h] and runs S steps, step s adding the affine point
+    qs[h][s] = (x, y) unless skip[h][s], negated (0 - y) where neg[h][s];
+    every coordinate a tuple of ncomp Montgomery integers. Per step, as the
+    kernel: nothing where both lanes skip; else each live lane's point
+    moves into (X2, Y2) and its Z is tested; an infinite accumulator takes
+    (x2, y2, 1); the madd stages run on every lane of the block when either
+    lane adds; an adding lane then takes (X3, Y3, Z3) where H != 0, doubles
+    in place where H == R == 0 (its half alone), or becomes infinity where
+    H == 0 != R. Returns each lane's (X, Y, Z) in the same form."""
+    assert 1 <= len(accs) == len(qs) == len(skip) == len(neg) <= 2
+    block = [_Slots(prog) for _ in accs]
+    for m, a in zip(block, accs):
+        m.set_point(a)
+    for s in range(len(skip[0])):
+        live = [not sk[s] for sk in skip]
+        if not any(live):
+            continue
+        for m, q, ng, lv in zip(block, qs, neg, live):
+            if lv:
+                x, y = q[s]
+                m.put("X2", x)
+                m.put("Y2", tuple(-v % P for v in y) if ng[s] else y)
+        zero = [m.zero("Z") for m in block]
+        adds = [lv and not z for lv, z in zip(live, zero)]
+        for m, lv, z in zip(block, live, zero):
+            if lv and z:  # infinity + Q = (x2, y2, 1)
+                m.set_point((m.coord("X2"), m.coord("Y2"), m.one))
+        if not any(adds):
+            continue
+        for m in block:
+            m.run("madd")
+        for m, a in zip(block, adds):
+            if not a:
+                continue
+            if not m.zero("H"):
+                m.set_point(m.point(("X3", "Y3", "Z3")))
+            elif m.zero("R"):
+                m.run("dbl")  # P == Q: dbl(P)
+            else:
+                m.set_infinity()  # P == -Q
+    return [m.point() for m in block]
+
+
 # ---- the header ------------------------------------------------------------------------
 
 def _render_group(tag: str, prog: Program) -> str:
@@ -454,9 +503,10 @@ def _render_group(tag: str, prog: Program) -> str:
 
 def render() -> str:
     return "\n".join([
-        "// The programs of K4, of the digit ladder and of K2's narrow mode: dbl-2009-l,",
-        "// add-2007-bl and madd-2007-bl as stages of chains of Fp operations on",
-        "// shared-memory slots of 16 words (see horner.cuh, ladder.cuh, pointwise.cuh).",
+        "// The programs of K4, of the digit ladder and of the narrow modes of K2 and K7:",
+        "// dbl-2009-l, add-2007-bl and madd-2007-bl as stages of chains of Fp operations",
+        "// on shared-memory slots of 16 words (see horner.cuh, ladder.cuh, pointwise.cuh,",
+        "// madd_multi.cuh).",
         "// Generated by `python -m kzg_tpu_torch.curve.horner_schedule --write`",
         "// from kzg_tpu_torch/curve/horner_schedule.py; do not edit.",
         "//",
@@ -481,7 +531,8 @@ def render() -> str:
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description="Print or write the K4 / ladder / K2 program header.")
+    ap = argparse.ArgumentParser(
+        description="Print or write the K4 / ladder / K2 / K7 program header.")
     ap.add_argument("--write", action="store_true", help=f"write {HEADER.name} in csrc/")
     args = ap.parse_args(argv)
     text = render()

@@ -11,8 +11,9 @@ runs at import time: the CPU tests import every module of the port.
 Each kernel is described by a `Kernel` record in `REGISTRY`: its C entry
 point, its source, the Pallas kernel it replaces, and `launches`, the count
 its wrapper increments each time it launches the kernel on the card. K2's
-`add` and `dbl` run in two modes, picked by the width (`curve.cuda_ops`):
-their records also name each mode's source and count its launches apart.
+`add` and `dbl` and K7's `madd_multi` run in two modes, picked by the
+width (`curve.cuda_ops`): their records also name each mode's source and
+count its launches apart.
 """
 
 import ctypes
@@ -34,7 +35,7 @@ SOURCES = ("field_kernels.cu", "point_kernels.cu", "ntt_kernels.cu",
            "msm_g2_kernels.cu", "horner_g2_kernels.cu", "mxu_kernels.cu", "ladder_kernels.cu",
            "pointwise_g2_kernels.cu", "scan_kernels.cu")
 HEADERS = ("field.cuh", "point.cuh", "coop.cuh", "horner.cuh", "horner_schedule.cuh",
-           "ladder.cuh", "pointwise.cuh", "scan.cuh")
+           "pair.cuh", "ladder.cuh", "pointwise.cuh", "madd_multi.cuh", "scan.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -66,9 +67,11 @@ class Kernel:
 _CSRC = "kzg_tpu_torch/csrc/"
 
 
-def _k2(name: str, replaces: str, narrow: str, wide: str) -> Kernel:
-    """A K2 record: the narrow mode (pointwise.cuh, two points a block) and
-    the wide mode (point.cuh, one thread a point), each in its source."""
+def _modes(name: str, replaces: str, narrow: str, wide: str) -> Kernel:
+    """A record of a kernel in two modes (K2, K7): the narrow mode (two
+    points or lanes a block on 16-lane products: pointwise.cuh,
+    madd_multi.cuh) and the wide mode (point.cuh, one thread a point or
+    lane), each in the source that instantiates it."""
     return Kernel(name, _CSRC + wide, replaces,
                   modes={"narrow": _CSRC + narrow, "wide": _CSRC + wide})
 
@@ -78,8 +81,10 @@ REGISTRY = {
     for k in (
         Kernel("field_elementwise", "kzg_tpu_torch/csrc/field_kernels.cu",
                "kzg_tpu/fields/pallas_field.py:273"),
-        _k2("g1_add", "kzg_tpu/curve/pallas_ops.py:712", "point_kernels.cu", "point_kernels.cu"),
-        _k2("g1_dbl", "kzg_tpu/curve/pallas_ops.py:707", "point_kernels.cu", "point_kernels.cu"),
+        _modes("g1_add", "kzg_tpu/curve/pallas_ops.py:712", "point_kernels.cu",
+               "point_kernels.cu"),
+        _modes("g1_dbl", "kzg_tpu/curve/pallas_ops.py:707", "point_kernels.cu",
+               "point_kernels.cu"),
         Kernel("g1_bucket_accumulate", "kzg_tpu_torch/csrc/point_kernels.cu",
                "kzg_tpu/curve/pallas_ops.py:388"),
         Kernel("g1_horner_join", "kzg_tpu_torch/csrc/point_kernels.cu",
@@ -87,20 +92,20 @@ REGISTRY = {
         Kernel("ntt_stage", "kzg_tpu_torch/csrc/ntt_kernels.cu",
                "kzg_tpu/fields/pallas_field.py:346"),
         # the ncomp=2 (Fp2) instantiations of _PointKernels.add / .dbl
-        _k2("g2_add", "kzg_tpu/curve/pallas_ops.py:712", "pointwise_g2_kernels.cu",
-            "point_g2_kernels.cu"),
-        _k2("g2_dbl", "kzg_tpu/curve/pallas_ops.py:707", "pointwise_g2_kernels.cu",
-            "point_g2_kernels.cu"),
+        _modes("g2_add", "kzg_tpu/curve/pallas_ops.py:712", "pointwise_g2_kernels.cu",
+               "point_g2_kernels.cu"),
+        _modes("g2_dbl", "kzg_tpu/curve/pallas_ops.py:707", "pointwise_g2_kernels.cu",
+               "point_g2_kernels.cu"),
         # _PointKernels.madd, ncomp=1 and 2
         Kernel("g1_madd", "kzg_tpu_torch/csrc/point_kernels.cu",
                "kzg_tpu/curve/pallas_ops.py:270"),
         Kernel("g2_madd", "kzg_tpu_torch/csrc/madd_g2_kernels.cu",
                "kzg_tpu/curve/pallas_ops.py:270"),
         # _PointKernels.madd_multi, ncomp=1 and 2
-        Kernel("g1_madd_multi", "kzg_tpu_torch/csrc/point_kernels.cu",
-               "kzg_tpu/curve/pallas_ops.py:275"),
-        Kernel("g2_madd_multi", "kzg_tpu_torch/csrc/madd_multi_g2_kernels.cu",
-               "kzg_tpu/curve/pallas_ops.py:275"),
+        _modes("g1_madd_multi", "kzg_tpu/curve/pallas_ops.py:275", "point_kernels.cu",
+               "point_kernels.cu"),
+        _modes("g2_madd_multi", "kzg_tpu/curve/pallas_ops.py:275", "madd_multi_g2_kernels.cu",
+               "madd_multi_g2_kernels.cu"),
         # the ncomp=2 instantiations of bucket_accumulate / horner_join
         Kernel("g2_bucket_accumulate", "kzg_tpu_torch/csrc/msm_g2_kernels.cu",
                "kzg_tpu/curve/pallas_ops.py:388"),
@@ -241,9 +246,12 @@ _SIGNATURES = {
     # (ox, oy, oz, x1, y1, z1, x2, y2, skip bytes, n, stream)
     "kzg_g1_madd": (_P,) * 9 + (_N, _P),
     "kzg_g2_madd": (_P,) * 9 + (_N, _P),
-    # (ox, oy, oz, ax, ay, az, qx, qy, skip bytes, neg bytes, steps, n, stream)
+    # (ox, oy, oz, ax, ay, az, qx, qy, skip bytes, neg bytes or null, steps, n, stream);
+    # the wide mode, one thread a lane, and the narrow mode, two lanes a block
     "kzg_g1_madd_multi": (_P,) * 10 + (_I, _N, _P),
     "kzg_g2_madd_multi": (_P,) * 10 + (_I, _N, _P),
+    "kzg_g1_madd_multi_narrow": (_P,) * 10 + (_I, _N, _P),
+    "kzg_g2_madd_multi_narrow": (_P,) * 10 + (_I, _N, _P),
     # (field, out, a, b, k, n, stream); the coop entry spreads each product over 16 lanes
     "kzg_field_mul_chain": (_I, _P, _P, _P, _I, _N, _P),
     "kzg_field_mul_chain_coop": (_I, _P, _P, _P, _I, _N, _P),

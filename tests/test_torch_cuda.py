@@ -1,6 +1,9 @@
 """Kernels K1-K9 (G1 and G2) on the card against their plain PyTorch twins,
 exact, K2 in both modes (narrow and wide, at widths straddling the
-crossover, its edge cases in both halves of a block), K3 and the bucket
+crossover, its edge cases in both halves of a block), K7 in both modes
+(1-6,755 lanes and the narrow mode's wave +- 1, S = 1, 5, 16, the planted
+lanes of `bench.madd_multi.random_steps`; the bucket loop at the 2^15
+witness's shape equal to the K3 route), K3 and the bucket
 loop also on skewed digits, K4 at the window join's edge cases, K8 also in its cooperative mode, K1's Fermat chain
 (`field_pow`) and the digit ladder (G1 and G2, also at its edge cases);
 the scan kernel `field_scan` (Fr and Fp, mul and add, forward and
@@ -27,6 +30,7 @@ import torch
 from kzg_tpu_torch import config, kernels, native
 from kzg_tpu_torch.bench import horner as hbench
 from kzg_tpu_torch.bench import ladder as lbench
+from kzg_tpu_torch.bench import madd_multi as mmbench
 from kzg_tpu_torch.bench import pointwise as pw
 from kzg_tpu_torch.constants import P, R
 from kzg_tpu_torch.curve import (
@@ -128,7 +132,7 @@ def test_k2_modes(dev, group, op, where):
     p, q = pw.planted(group, n, torch.Generator(device=dev).manual_seed(n), edges[:2])
     fn, args = (add, (p, q)) if op == "add" else (dbl, (p,))
     want = add_plain(p, q) if op == "add" else dbl_plain(p)
-    for mode in cuda_ops.K2_MODES:
+    for mode in cuda_ops.MODES:
         assert _equal(fn(*args, mode=mode), want)
     before = kernels.mode_counts()[f"{group}_{op}"]
     assert _equal(fn(*args), want)
@@ -141,7 +145,7 @@ def test_k2_modes(dev, group, op, where):
 def test_k2_edge_pairs_match_oracle(dev, group):
     add, dbl, _, _, from_device, _ = K2[group]
     p, q, want, _ = pw.edge_pairs(group, dev)
-    for mode in cuda_ops.K2_MODES:
+    for mode in cuda_ops.MODES:
         assert from_device(add(p, q, mode=mode)) == want
         pts = from_device(p)
         assert from_device(dbl(p, mode=mode)) == [None if a is None else lbench._mul(a, 2)
@@ -273,6 +277,81 @@ def test_k7_madd_multi_and_bucket_loop(dev, group):
     scal = torch.from_numpy(FR.from_ints(_ints(29, R, n))).to(dev)
     inputs = pippenger.bucket_inputs(x, y, inf, scal, c)
     assert _equal(pippenger._bucket_loop(curve, *inputs), cuda_ops.bucket_accumulate(*inputs))
+
+
+K7 = {"g1": (cuda_ops.madd_multi, cuda_ops.madd_multi_plain, cuda_ops._G1K),
+      "g2": (cuda_ops.g2_madd_multi, cuda_ops.g2_madd_multi_plain, cuda_ops._G2K)}
+
+
+@pytest.mark.parametrize("steps", [1, 5, 16])
+@pytest.mark.parametrize("lanes", [1, 2, 3, 200, 4223, 4224, 4225, 6755])
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_k7_modes(dev, group, lanes, steps):
+    """Both modes of K7 against the twin, with and without a neg mask, on
+    random field values with the planted lanes (an infinite accumulator, a
+    lane skipped at every step, P + P, P + (-P) then a take), a block's
+    second lane missing at odd widths, 4,224 +- 1 lanes (a G1 wave of the
+    narrow kernel, two G2 waves); the width's own mode taken by default."""
+    kfn, pfn, g = K7[group]
+    gen = torch.Generator(device=dev).manual_seed(31 * lanes + steps)
+    acc, q, skip, neg = mmbench.random_steps(group, lanes, steps, gen)
+    want = pfn(acc, q, skip, neg)
+    for mode in cuda_ops.MODES:
+        assert _equal(kfn(acc, q, skip, neg, mode=mode), want)
+    before = kernels.mode_counts()[f"{group}_madd_multi"]
+    assert _equal(kfn(acc, q, skip), pfn(acc, q, skip))
+    after = kernels.mode_counts()[f"{group}_madd_multi"]
+    mode = cuda_ops.width_mode(g, "madd_multi", lanes, dev)
+    assert {m: after[m] - before[m] for m in after} == {m: int(m == mode) for m in after}
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_k7_masks_at_an_odd_address(dev, group):
+    """Masks sliced one step into an odd-width array (contiguous, at an odd
+    byte) give both modes the twin's words: the narrow kernel copies its
+    masks in 32-bit words, so the wrapper hands it an aligned copy."""
+    kfn, pfn, _ = K7[group]
+    lanes, steps = 201, 5
+    gen = torch.Generator(device=dev).manual_seed(77)
+    acc, q, skip, neg = mmbench.random_steps(group, lanes, steps, gen)
+    skip_all = torch.cat([~skip[:1], skip])[1:]
+    neg_all = torch.cat([~neg[:1], neg])[1:]
+    assert skip_all.is_contiguous() and skip_all.data_ptr() % 4 != 0
+    assert neg_all.is_contiguous() and neg_all.data_ptr() % 4 != 0
+    want = pfn(acc, q, skip, neg)
+    for mode in cuda_ops.MODES:
+        assert _equal(kfn(acc, q, skip_all, neg_all, mode=mode), want)
+        assert _equal(kfn(acc, q, skip_all, mode=mode), pfn(acc, q, skip))
+
+
+def test_k7_bucket_loop_at_the_witness_shape(dev):
+    """The bucket loop of a 2^15 - 1 point MSM (c = 9, the 2^15 witness's)
+    on K7 equals the K3 route word for word, in the mode its width picks
+    and in the other."""
+    from kzg_tpu_torch.kzg.srs import setup_device
+
+    n = (1 << 15) - 1
+    params = setup_device(7, 1 << 15, g2_count=2, device=dev)
+    pts = tuple(t[..., :n] for t in params.gs)
+    scal = torch.from_numpy(FR.from_ints(_ints(44, R, n))).to(dev)
+    inputs = pippenger.bucket_inputs(*pts, scal, 9)
+    runs = pippenger.split_runs(inputs[2], inputs[3], n)
+    k3 = cuda_ops.bucket_accumulate(*inputs)
+    before = kernels.mode_counts()["g1_madd_multi"]
+    assert _equal(pippenger._bucket_loop(G1, *inputs), k3)
+    after = kernels.mode_counts()["g1_madd_multi"]
+    mode = cuda_ops.width_mode(cuda_ops._G1K, "madd_multi", runs.pos.numel(), dev)
+    assert after[mode] - before[mode] == -(-runs.longest // config.get_config().msm_fuse_steps)
+
+    class Forced:  # the bucket loop's curve with K7 forced into the other mode
+        def __getattr__(self, name):
+            return getattr(G1, name)
+
+        def madd_multi(self, acc, q, skip, neg=None):
+            return cuda_ops.madd_multi(acc, q, skip, neg,
+                                       mode="wide" if mode == "narrow" else "narrow")
+
+    assert _equal(pippenger._bucket_loop(Forced(), *inputs), k3)
 
 
 def test_g2_pippenger_kernels_and_msm(dev):
@@ -619,7 +698,7 @@ def test_no_fallback_when_the_build_fails(dev, monkeypatch):
         cuda_ops.g2_add(p, p)
     with pytest.raises(kernels.KernelError):
         cuda_ops.g2_dbl(p)
-    for mode in cuda_ops.K2_MODES:
+    for mode in cuda_ops.MODES:
         with pytest.raises(kernels.KernelError):
             cuda_ops.g2_add(p, p, mode=mode)
     with pytest.raises(kernels.KernelError):
@@ -643,8 +722,14 @@ def test_no_fallback_when_the_build_fails(dev, monkeypatch):
     with pytest.raises(kernels.KernelError):
         cuda_ops.madd(g1p, g1p[:2], skip)
     q3 = tuple(t[:, :, None].expand(-1, -1, 3, -1).contiguous() for t in p[:2])
+    skip3 = torch.zeros(3, 4, dtype=torch.bool, device=dev)
     with pytest.raises(kernels.KernelError):
-        cuda_ops.g2_madd_multi(p, q3, torch.zeros(3, 4, dtype=torch.bool, device=dev))
+        cuda_ops.g2_madd_multi(p, q3, skip3)
+    for mode in cuda_ops.MODES:
+        with pytest.raises(kernels.KernelError):
+            cuda_ops.g2_madd_multi(p, q3, skip3, skip3, mode=mode)
+        with pytest.raises(kernels.KernelError):
+            cuda_ops.madd_multi(g1p, tuple(t[:, 0] for t in q3), skip3, mode=mode)
     # G2 Pippenger (512 points take the bucket route) raises too: no ladder
     # and no twin stands in for the missing kernels
     inf = torch.zeros(512, dtype=torch.bool, device=dev)

@@ -165,7 +165,7 @@ def test_narrow_blocks_an_sm():
 @pytest.mark.parametrize("op", ["add", "dbl"])
 @pytest.mark.parametrize("group", ["g1", "g2"])
 def test_k2_mode_reads_the_sm_count(monkeypatch, group, op):
-    """`k2_mode` takes the device's SM count and the kernel's waves: narrow
+    """`width_mode` takes the device's SM count and the kernel's waves: narrow
     up to NARROW_WAVES waves, wide one point above."""
     monkeypatch.setattr(cuda_ops, "_sm_count", lambda index: 132)
     g = cuda_ops._G1K if group == "g1" else cuda_ops._G2K
@@ -173,10 +173,10 @@ def test_k2_mode_reads_the_sm_count(monkeypatch, group, op):
     assert waves >= 1
     top = waves * 132 * cuda_ops.narrow_min_blocks(g.ncomp) * 2
     dev = torch.device("cuda", 0)
-    assert cuda_ops.k2_mode(g, op, 1, dev) == "narrow"
-    assert cuda_ops.k2_mode(g, op, top, dev) == "narrow"
-    assert cuda_ops.k2_mode(g, op, top + 1, dev) == "wide"
-    assert cuda_ops.k2_mode(g, op, 1 << 20, dev) == "wide"
+    assert cuda_ops.width_mode(g, op, 1, dev) == "narrow"
+    assert cuda_ops.width_mode(g, op, top, dev) == "narrow"
+    assert cuda_ops.width_mode(g, op, top + 1, dev) == "wide"
+    assert cuda_ops.width_mode(g, op, 1 << 20, dev) == "wide"
 
 
 def test_unknown_mode_raises():
