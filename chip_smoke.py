@@ -16,9 +16,10 @@ non-zero before the result line:
                 (infinity, P+P, P+(-P) lanes), at each kernel's crossover
                 (the most points its narrow mode takes on this card) and at
                 2^20 (random, `bench.pointwise.edge_pairs` planted first:
-                every pair of cases in both halves of a block), K6 madd on 2^12
-                and 2^11 lanes (skip, infinite, same and opposite lanes
-                planted), K7 madd_multi in both modes (narrow: two lanes a
+                every pair of cases in both halves of a block), K6 madd (K7's
+                narrow kernel at S = 1) on 2^12 and 2^11 lanes (skip,
+                infinite, same and opposite lanes planted) and on one and
+                four waves of that kernel, K7 madd_multi in both modes (narrow: two lanes a
                 block on 16-lane products; wide: one thread a lane) at the
                 shape a 2^12-point MSM gives it (16 steps over the sub-run
                 lanes of 37 x 128 buckets; neg mask, same and opposite steps
@@ -33,9 +34,16 @@ non-zero before the result line:
                 twin at the join's edge cases (`bench.horner.CASES`, G1 and
                 G2: empty top windows, all infinity, P == Q, P == -Q, W = 1,
                 c = 1, c = 16),
-                K5 every stage of a 2^20 NTT in the Pease layout and in the
-                four-step layout, of a 2^12 Pease transform, and the whole
-                2^20 NTT against the domain's plain twin; over Fp2: add/dbl,
+                K5's per-stage entry `ntt_stage` (the route as it was) at
+                every stage of a 2^20 NTT in the Pease layout and in the
+                four-step layout and of a 2^12 Pease transform; K5's block
+                entry `ntt_block` through whole transforms at 2^12 (one
+                launch), 2^15 and 2^20 (two: the four-step), forward and
+                inverse, plain and coset, 0, 1 and r - 1 planted, against
+                the plain domain word for word, their launches printed and
+                checked (at most 1 up to 2^BLOCK_MAX_EXP, 3 above, no
+                ntt_stage), each timed beside the stage loop it replaced
+                (`Domain.as_stages()`) in turns; over Fp2: add/dbl,
                 K6 and K7 as over Fp, K3 / K4 on a dense G2 MSM's buckets at
                 2^12 (c = 7) and at 2^15 (c = 10), every window, and the
                 native engine's MSM for the whole; K8 mul_chain for Fr and Fp at
@@ -91,7 +99,8 @@ non-zero before the result line:
                 numerator checked at two random points with host ints;
  10. counts   - launch counts of phases 7-9 (reset just before phase 7),
                 every kernel of that path must be > 0, G2 add and dbl in
-                the narrow mode among them;
+                the narrow mode among them, ntt_block > 0 and the per-stage
+                ntt_stage = 0 (as on every counted path);
       (the Lagrange build timed group by group, before the next reset:
       one ladder launch a ladder, no stand-alone dbl or madd, one
       field_pow an affine conversion);
@@ -111,15 +120,16 @@ non-zero before the result line:
                 Lagrange G2 points, h^z == lh[d-1] - lh[0]);
  14. counts   - launch counts of phases 11-13 (reset just before phase 11),
                 every kernel of that path must be > 0 (all but K3 over Fp:
-                its MSMs have 128 buckets a window and take K7; and K6,
-                whose madd runs inside the ladder kernel: 0 there);
+                its MSMs have 128 buckets a window and take K7; K6,
+                whose madd runs inside the ladder kernel: 0 there; and the
+                per-stage ntt_stage, which must be 0);
  15. peaks    - `bench.mul_peak` for Fr and Fp at 2^19 lanes: the k = 65 rate,
                 the marginal rate (launch cost cancelled) and the k = 1 launch
                 beside the rate the kernel report's bound assumes;
  16. mxu NTT  - `Domain` transforms under `ntt_mxu="auto"` (matmul-DFT blocks,
                 kernel K9) equal to `"off"` word for word at 2^14 (balanced
                 split), 2^15 (pinned split) and 2^20, both directions; K9 > 0
-                and K5 = 0 inside the transform; the 2^20 coset division of
+                and both K5 entries = 0 inside the transform; the 2^20 coset division of
                 phase 9 again with the same quotient; times under both
                 settings (CUDA events, mean of 5);
  17. 2^20     - `setup_device(s, 2^20, g2_count=2)` (powers 0, 1, 2^19 and
@@ -131,7 +141,8 @@ non-zero before the result line:
                 route at 2^12 equal to the trusted one in `lg` and `lh`;
  18. counts   - launch counts of phases 15-17 (reset just before phase 15):
                 K8, K9 and every kernel device setup and the 2^20 path touch
-                must be > 0, G1 add in both modes;
+                must be > 0 (ntt_block among them, ntt_stage = 0), G1 add in
+                both modes;
  19. K3 2^20  - K3 alone at the 2^20 witness's shape (2^20 - 1 points,
                 c = 14), timed with its bound, its twin on the top window;
  20. Lagrange - the trusted Lagrange SRS at 2^15 (the ceremony's largest
@@ -140,7 +151,13 @@ non-zero before the result line:
                 point for point against the from-secret basis of the device
                 route;
  21. counts   - launch counts of phase 20's group iNTTs (reset just before):
-                the ladders, field_pow, K1 and K2 must be > 0.
+                the ladders, field_pow, K1 and K2 must be > 0;
+ 22. ntt_block - every shape at which the paths since phase 3 launched
+                ntt_block (recorded by shape and scales: the subproduct
+                trees' small stacked transforms, 2^12, both four-step passes
+                at 2^15 and 2^20), replayed on random words with 0, 1 and
+                r - 1 planted against the twin word for word, each timed
+                with its bound.
 K3 and K7 run over sub-runs of at most L points of each bucket's run
 (`msm.pippenger.split_runs`); each phase that runs them prints L, the
 number of sub-runs, the longest one, the most sub-runs of one bucket and,
@@ -162,7 +179,12 @@ rate); K7 has a row a mode too (`g1_madd_multi_narrow`, ...), its times
 at the 2^12 MSM's shape and `shapes`, each timed shape (the 2^15
 witness's too) with its time, twin time, bound, `chain_ms` (S steps of
 the madd's critical path at those latencies) and `throughput_ms` (the
-live steps' products at the measured rate); K4's rows also carry `chain_ms`, its critical path in
+live steps' products at the measured rate); K6's rows (`g1_madd`,
+`g2_madd`) take their times at 2^12 lanes and carry `widths` (2^12, 2^11,
+one and four waves); `ntt_block`'s row takes its time at the 2^20
+transform's first pass and carries `shapes` (phase 22: every shape the
+paths launched, with time, twin time and bound) and `transforms` (phase 3:
+whole transforms beside the stage loop, with launches); K4's rows also carry `chain_ms`, its critical path in
 dependent products at W = 26, c = 10 times the 16-lane Fp product's
 latency; the ladders' `chain_ms` is a lane's critical path at c = 4,
 W = 64 at that latency and `throughput_ms` all the lanes' Fp products at
@@ -297,6 +319,30 @@ def bound(nbytes, mads):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def block_products(shape, pre, post):
+    """Fr products one ntt_block launch on x of `shape` (8, nb, m, bt)
+    needs: (m / 2)(log2 m - 1) a column (every butterfly but the last
+    stage's, whose twiddle is 1) and one an element a scale, whatever the
+    layout of its table."""
+    _, nb, m, bt = shape
+    n = nb * m * bt
+    return n // 2 * (m.bit_length() - 2) + n * sum(sc is not None for sc in (pre, post))
+
+
+def block_bound(shape, out_bt, pre, post):
+    """Bound of one ntt_block launch on x of `shape` (8, nb, m, bt): the
+    array read and written once with the stage and scale tables; the
+    (m / 2) log2 m butterflies of every column, an add and a sub each, and
+    `block_products`."""
+    _, nb, m, bt = shape
+    n = nb * m * bt
+    butterflies = n // 2 * (m.bit_length() - 1)
+    products = block_products(shape, pre, post)
+    tables = m + sum(0 if sc is None else sc.lo.shape[0] + (0 if sc.hi is None else sc.hi.shape[0])
+                     for sc in (pre, post))
+    return bound(32 * (2 * n + tables), products * FR_MUL_MADS + butterflies * 4 * 8)
+
+
 def point_bound(op, g2, lanes, coords_moved, live=None):
     """Bound of a pointwise add / dbl / madd over `lanes` points:
     coords_moved coordinates of 48 (G1) or 96 (G2) bytes a lane, the
@@ -428,6 +474,7 @@ def main(argv=None) -> int:
     from kzg_tpu_torch import kernels, native
     from kzg_tpu_torch.bench import horner as hbench
     from kzg_tpu_torch.bench import ladder as lbench
+    from kzg_tpu_torch.bench import madd_multi as mmbench
     from kzg_tpu_torch.bench import mul_peak, peaks
     from kzg_tpu_torch.bench import pointwise as pwbench
     from kzg_tpu_torch.curve import horner_schedule
@@ -446,6 +493,7 @@ def main(argv=None) -> int:
     from kzg_tpu_torch.kzg.srs import KZGParams, setup, setup_device
     from kzg_tpu_torch.msm import msm_g1, msm_g2, pippenger
     from kzg_tpu_torch.ntt import Domain, mxu
+    from kzg_tpu_torch.ntt import domain as ntt_domain
     from kzg_tpu_torch.oracle import ec_add, ec_neg, g1_generator
     from kzg_tpu_torch.poly import Polynomial, lagrange_interpolation, vanishing_poly
     from kzg_tpu_torch.poly import horner as horner_mod
@@ -497,6 +545,21 @@ def main(argv=None) -> int:
 
     rng = random.Random(SEED)
     kinfo = {k: {} for k in kernels.REGISTRY}
+    # ntt_block calls by shape, recorded from phase 3 on (`record_block`) and
+    # replayed against the twin in phase 22; whole transforms timed in phase 3
+    block_calls = {}
+    block_transforms = []
+    launch_block = cuda_field.ntt_block
+
+    def record_block(x, tw, pre=None, post=None, out_bt=None, cols=None, threads=None):
+        # a Domain's stage tables are built once a device, so the table's
+        # address tells the forward calls of a shape from the inverse ones
+        inverse = tw.data_ptr() == Domain(tw.shape[0].bit_length() - 1)._stage_table(
+            True, tw.device).data_ptr()
+        key = (tuple(x.shape), out_bt or x.shape[3], "inverse" if inverse else "forward") + tuple(
+            None if sc is None else (sc.kind, sc.hi is not None) for sc in (pre, post))
+        block_calls.setdefault(key, (tw, pre, post))
+        return launch_block(x, tw, pre, post, out_bt, cols, threads)
 
     def check_group_launches(group, before, exp):
         """A group iNTT of 2^exp points (and its to_affine) since `before`:
@@ -647,8 +710,14 @@ def main(argv=None) -> int:
                  p, q)
 
         def madd_case(curve, kname, kernel_fn, plain_fn, p_jac, qx, qy, jac_of, g2):
-            """K6 on n lanes: lane 0 p infinite, 3 p == q under another Z,
-            4 p == -q, every eighth lane skipped, the rest generic."""
+            """K6 (K7's narrow kernel at S = 1) on n lanes (lane 0 p
+            infinite, 3 p == q under another Z, 4 p == -q, every eighth
+            lane skipped, the rest generic), on their first 2^11 and on one
+            and four waves of the kernel (`bench.madd_multi`'s random
+            operands at S = 1, its planted lanes first), each width against
+            the twin word for word and timed (device time behind a held
+            stream, a call's time). The report's row takes its times at
+            2^12 lanes."""
             p_jac = tuple(t.clone() for t in p_jac)
             p_jac[2][..., 0] = 0
             same = jac_of(qx[..., 3:4], qy[..., 3:4])
@@ -657,30 +726,44 @@ def main(argv=None) -> int:
                 p_jac[i][..., 3] = same[i][..., 0]
                 p_jac[i][..., 4] = opp[i][..., 0]
             skip = (torch.arange(n, device=dev) % 8) == 7
-            got = kernel_fn(p_jac, (qx, qy), skip)
-            want = plain_fn(p_jac, (qx, qy), skip)
-            err = max_abs_diff(got, want)
-            check(err == 0, f"K6 {kname} 2^12 (skip, inf, same, opposite lanes) equals plain")
-            inf = curve.is_inf(got)
-            check(bool(inf[4]) and not bool(inf[3]) and not bool(inf[0])
-                  and all(torch.equal(g[..., 7], t[..., 7]) for g, t in zip(got, p_jac)),
-                  f"K6 {kname}: P + (-P) is infinity, P + P and inf + Q are not, skip keeps P")
-            kinfo[kname].update(
-                max_abs_err=err,
-                ms=cuda_ms(lambda: kernel_fn(p_jac, (qx, qy), skip), 20),
-                plain_ms=cuda_ms(lambda: plain_fn(p_jac, (qx, qy), skip), 2),
-                bound=bound((8 * (96 if g2 else 48) + 1) * n,
-                            POINT_MULS["madd"][g2] * FP_MUL_MADS * int((~skip).sum())),
-            )
-            # all but the last ladder of a 2^12 group iNTT run on half batches
             h = n // 2
-            half = [tuple(t[..., :h].contiguous() for t in x) for x in (p_jac, (qx, qy))]
-            got = kernel_fn(*half, skip[:h])
-            check(max_abs_diff(got, tuple(t[..., :h] for t in want)) == 0,
-                  f"K6 {kname} 2^11 lanes equals plain")
-            report[f"{kname}_2e11_ms"] = cuda_ms(lambda: kernel_fn(*half, skip[:h]), 20)
-            log(f"  K6 {kname} at 2^11 lanes: kernel {report[f'{kname}_2e11_ms']:.4f} ms "
-                f"[{card}]")
+            wave = 2 * sm_count * cuda_ops.narrow_min_blocks(1 + g2)
+            cases = [(n, (p_jac, (qx, qy), skip)),
+                     (h, (tuple(t[..., :h].contiguous() for t in p_jac),
+                          (qx[..., :h].contiguous(), qy[..., :h].contiguous()), skip[:h]))]
+            for k in (1, 4):
+                acc_t, q_t, skip_t, _ = mmbench.random_steps(
+                    kname[:2], k * wave, 1, torch.Generator(device=dev).manual_seed(SEED + 30 + g2))
+                cases.append((k * wave, (acc_t, tuple(t.select(-2, 0) for t in q_t), skip_t[0])))
+            row = {"widths": [], "max_abs_err": 0}
+            for lanes, args in cases:
+                want, plain_ms = once_ms(lambda: plain_fn(*args))
+                got = kernel_fn(*args)
+                err = max_abs_diff(got, want)
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+                check(err == 0, f"K6 {kname} at {lanes} lanes equals plain")
+                if lanes == n:
+                    inf = curve.is_inf(got)
+                    check(bool(inf[4]) and not bool(inf[3]) and not bool(inf[0])
+                          and all(torch.equal(g[..., 7], t[..., 7]) for g, t in zip(got, p_jac)),
+                          f"K6 {kname}: P + (-P) is infinity, P + P and inf + Q are not, "
+                          "skip keeps P")
+                live = int((~args[2]).sum())
+                row["widths"].append({
+                    "lanes": lanes, "ms": peaks.held_ms(lambda: kernel_fn(*args), 20),
+                    "call_ms": cuda_ms(lambda: kernel_fn(*args), 20),
+                    "plain_ms": plain_ms,
+                    "bound_ms": bound((8 * (96 if g2 else 48) + 1) * lanes,
+                                      POINT_MULS["madd"][g2] * FP_MUL_MADS * live)[0]})
+            ref = row["widths"][0]
+            row.update(ms=ref["ms"], plain_ms=ref["plain_ms"], lanes=n,
+                       bound=bound((8 * (96 if g2 else 48) + 1) * n,
+                                   POINT_MULS["madd"][g2] * FP_MUL_MADS * int((~skip).sum())))
+            log(f"  K6 {kname}, device ms (a call's ms, twin ms, bound ms): " + ", ".join(
+                f"{r['lanes']} lanes {r['ms']:.4f} ({r['call_ms']:.4f}, {r['plain_ms']:.2f}, "
+                f"{r['bound_ms']:.6f})" for r in row["widths"]) + f" [{card}]")
+            kinfo[kname].update(row)
+            report[f"{kname}_2e11_ms"] = row["widths"][1]["ms"]
 
         def k7_modes(kname, kernel_fn, plain_fn, cases, g2, label):
             """K7 in each mode against the twin on `cases` ((acc, q, skip[,
@@ -985,6 +1068,55 @@ def main(argv=None) -> int:
             max_abs_err=k5_err, ms=stage_ms["four-step"][0], plain_ms=stage_ms["four-step"][1],
             bound=bound(32 * (2 * d20 + sub.d // 2), (FR_MUL_MADS + 4 * 8) * (d20 // 2)))
         report.update(ntt_2e20_ms=ntt_ms, ntt_2e20_plain_ms=ntt_plain_ms)
+
+        # K5 as a block transform (`ntt_block`): whole transforms at 2^12,
+        # 2^15 and 2^20, each direction, plain and coset, with 0, 1 and r - 1
+        # planted, against the plain domain word for word; the launches of
+        # each; the device time (held stream) and a call's time beside the
+        # stage loop it replaced (`as_stages`: a K5 stage launch a stage, a
+        # gather, K1 scales) in turns. From here on every ntt_block call is
+        # recorded by shape and replayed against the twin in phase 22.
+        cuda_field.ntt_block = record_block
+        blk_err = 0
+        gen_b = torch.Generator(device=dev).manual_seed(SEED + 40)
+        for exp in (EXP_EVAL, N_MAIN.bit_length() - 1, EXP_COSET):
+            dom = Domain(exp)
+            x = random_fr_words(gen_b, (dom.d,), dev)
+            x[:, :3] = torch.from_numpy(FR.encode([0, 1, R - 1])).to(dev)
+            for name in ("ntt", "intt", "coset_ntt", "coset_intt"):
+                before = kernels.launch_counts()
+                got = getattr(dom, name)(x)
+                torch.cuda.synchronize()
+                after = kernels.launch_counts()
+                launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+                err = max_abs_diff(got, getattr(dom.as_plain(), name)(x))
+                blk_err = max(blk_err, err)
+                check(err == 0, f"ntt_block route {name} 2^{exp} equals the plain domain")
+                most = 1 if exp <= ntt_domain.BLOCK_MAX_EXP else 3
+                check(sum(launched.values()) <= most and launched.get("ntt_block", 0) >= 1
+                      and launched.get("ntt_stage", 0) == 0,
+                      f"{name} 2^{exp}: launches {launched} (at most {most}, no ntt_stage)")
+                fns = {"block": lambda: getattr(dom, name)(x),
+                       "stages": lambda: getattr(dom.as_stages(), name)(x)}
+                before = kernels.launch_counts()
+                fns["stages"]()
+                after = kernels.launch_counts()
+                iters = 20 if exp <= 15 else 5
+                t = {k: [] for k in fns}
+                for k in ("stages", "block", "block", "stages"):
+                    t[k].append((peaks.held_ms(fns[k], iters), cuda_ms(fns[k], iters)))
+                row = {"exp": exp, "transform": name, "launches": sum(launched.values()),
+                       "stages_launches": sum(after[k] - before[k] for k in after)}
+                for k, v in t.items():
+                    row[f"{k}_ms"] = sum(a for a, _ in v) / len(v)
+                    row[f"{k}_call_ms"] = sum(b for _, b in v) / len(v)
+                block_transforms.append(row)
+                log(f"  {name} 2^{exp}: ntt_block {row['block_ms']:.4f} ms device "
+                    f"({row['block_call_ms']:.4f} a call), {row['launches']} launches; stage loop "
+                    f"{row['stages_ms']:.4f} ms ({row['stages_call_ms']:.4f}), "
+                    f"{row['stages_launches']} launches [{card}]")
+            del x
+        kinfo["ntt_block"].update(max_abs_err=blk_err, transforms=block_transforms)
 
         # G2 add / dbl: SRS G2 points at random Fp2 Z, special lanes as K2
         f2 = cuda_ops.PLAIN2.f
@@ -1337,7 +1469,9 @@ def main(argv=None) -> int:
         del y20, planes20, x8, x8_rows, y_top, y15
 
         for k, v in kinfo.items():
-            if "modes" not in v:  # K2 logged its modes above
+            # K2 and K7 logged their modes above and K6 its widths;
+            # ntt_block's row is timed in phase 22, at the paths' shapes
+            if "modes" not in v and "widths" not in v and k != "ntt_block":
                 log(f"  {k}: kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.2f} ms, bound "
                     f"{v['bound'][0]:.6f} ms ({v['bound'][1]}) [{card}]")
 
@@ -1438,6 +1572,7 @@ def main(argv=None) -> int:
             check(modes_single[k]["narrow"] > 0,
                   f"{k} took its narrow mode {modes_single[k]['narrow']} times on the "
                   "single-opening path")
+        check(counts_single["ntt_stage"] == 0, "no per-stage K5 launch on the single-opening path")
         check(modes_single["g1_madd_multi"][k7_mode_w] > 0,
               f"g1_madd_multi took the mode its rule picks at the witness's shape, {k7_mode_w}, "
               f"{modes_single['g1_madd_multi'][k7_mode_w]} times on the single-opening path")
@@ -1508,10 +1643,14 @@ def main(argv=None) -> int:
         numerator = poly - lagrange_interpolation(xs_d, poly.eval_many(xs_d))
         z = vanishing_poly(xs_d)
         torch.cuda.synchronize()
+        before = kernels.launch_counts()
         t0 = time.perf_counter()
         q = KZGProver._exact_div(numerator, z, xs_int=xs)
         torch.cuda.synchronize()
         div_s = time.perf_counter() - t0
+        after = kernels.launch_counts()
+        log(f"  coset division launches: "
+            f"{ {k: after[k] - before[k] for k in after if after[k] != before[k]} }")
         check(q.num_coeffs() == n - K_BATCH, f"quotient has {n - K_BATCH} coefficients")
         num_ints = numerator.to_ints()
         q_ints = q.to_ints()
@@ -1534,10 +1673,12 @@ def main(argv=None) -> int:
                   f"{k} took its narrow mode {modes_batched[k]['narrow']} times on the "
                   "batched path")
         for k in ("field_elementwise", "field_scan", "fr_horner", "g1_add", "g1_dbl",
-                  "g1_bucket_accumulate", "g1_madd_multi", "g1_horner_join", "ntt_stage", "g2_add",
+                  "g1_bucket_accumulate", "g1_madd_multi", "g1_horner_join", "ntt_block", "g2_add",
                   "g2_dbl"):
             check(counts_batched[k] > 0,
                   f"{k} launched {counts_batched[k]} times on the batched path")
+        check(counts_batched["ntt_stage"] == 0,
+              "the batched path transforms on ntt_block, no per-stage K5 launch")
 
     # the Lagrange build timed group by group, outside the counted run
     # (compute_lagrange_basis below runs both groups again)
@@ -1700,10 +1841,13 @@ def main(argv=None) -> int:
             # gives the G1 instantiation of K3 nothing; K8 and K9 belong to
             # the probe and the matmul-DFT NTT (phases 15-16); K6's madd
             # runs inside the ladder kernel; the evaluation form divides in
-            # evaluation form, without fr_horner
+            # evaluation form, without fr_horner; its transforms take ntt_block,
+            # never the per-stage K5
             check(n_launch > 0 or k in ("g1_bucket_accumulate", "mul_chain", "mxu_reduce",
-                                        "g1_madd", "g2_madd", "fr_horner"),
+                                        "g1_madd", "g2_madd", "fr_horner", "ntt_stage"),
                   f"{k} launched {n_launch} times on the G2 MSM and evaluation-form path")
+        check(counts_eval["ntt_stage"] == 0,
+              "the evaluation-form path transforms on ntt_block, no per-stage K5 launch")
         check(counts_eval["g1_madd"] == 0 and counts_eval["g2_madd"] == 0,
               "no stand-alone madd launch on the evaluation-form path (the ladder has them)")
         for k, m in (("g1_madd_multi", k7_mode12), ("g2_madd_multi", k7_mode12_g2)):
@@ -1745,9 +1889,10 @@ def main(argv=None) -> int:
                   f"Domain({exp}) ntt and intt under ntt_mxu=auto equal ntt_mxu=off, split "
                   f"{dom._fs_split(dev)}")
             check(after["mxu_reduce"] > before["mxu_reduce"]
-                  and after["ntt_stage"] == before["ntt_stage"],
+                  and after["ntt_stage"] == before["ntt_stage"]
+                  and after["ntt_block"] == before["ntt_block"],
                   f"the transforms launched K9 {after['mxu_reduce'] - before['mxu_reduce']} times "
-                  "and no butterfly stage")
+                  "and neither K5 entry")
             on_ms = cuda_ms(lambda: dom.ntt(x), 5)
             configure(ntt_mxu="off")
             log(f"  NTT 2^{exp}: ntt_mxu=auto {on_ms:.4f} ms, off {off_ms:.4f} ms "
@@ -1867,10 +2012,12 @@ def main(argv=None) -> int:
         log(f"  {counts_big}")
         log(f"  K2 and K7 by mode: {modes_big}")
         for k in ("mul_chain", "mxu_reduce", "field_elementwise", "field_scan", "fr_horner",
-                  "ntt_stage", "g1_add", "g1_dbl", "g2_add", "g1_bucket_accumulate",
+                  "ntt_block", "g1_add", "g1_dbl", "g2_add", "g1_bucket_accumulate",
                   "g1_horner_join"):
             check(counts_big[k] > 0, f"{k} launched {counts_big[k]} times on the probe, "
                   "matmul-DFT, device-setup and 2^20 path")
+        check(counts_big["ntt_stage"] == 0,
+              "the 2^20 path transforms on ntt_block, no per-stage K5 launch")
         check(modes_big["g1_add"]["wide"] > 0 and modes_big["g1_add"]["narrow"] > 0,
               f"g1_add took both modes on the 2^20 path ({modes_big['g1_add']}: setup's "
               "rounds at 2^20 points wide, the reductions' last levels narrow)")
@@ -1949,11 +2096,51 @@ def main(argv=None) -> int:
                   "g1_add", "g2_add"):
             check(counts_lag[k] > 0, f"{k} launched {counts_lag[k]} times on the trusted "
                   f"Lagrange SRS at 2^{EXP_LAGRANGE}")
+        check(counts_lag["ntt_stage"] == 0, "no per-stage K5 launch on the Lagrange SRS")
         counts = {k: counts_single[k] + counts_batched[k] + counts_eval[k] + counts_big[k]
                   + counts_lag[k] for k in counts_eval}
         mode_totals = {k: {m: sum(run[k][m] for run in (modes_single, modes_batched, modes_eval,
                                                          modes_big, modes_lag))
                            for m in cuda_ops.MODES} for k in modes_eval}
+
+    # ---- 22. ntt_block at every shape the paths launched it, against its twin ------------------
+    cuda_field.ntt_block = launch_block
+    with phase("ntt_block at the paths' shapes"):
+        gen_r = torch.Generator(device=dev).manual_seed(SEED + 41)
+        edges = torch.from_numpy(FR.encode([0, 1, R - 1])).to(dev)
+        shapes = []
+        for (shape, out_bt, direction, *kinds), (tw, pre, post) in sorted(
+                block_calls.items(), key=lambda kv: (kv[0][0][1] * kv[0][0][2] * kv[0][0][3],
+                                                     str(kv[0]))):
+            x = random_fr_words(gen_r, shape[1:], dev)
+            x.view(FR.W, -1)[:, :3] = edges
+            args_b = (x, tw, pre, post, out_bt)
+            want, plain_ms = once_ms(lambda: cuda_field.ntt_block_plain(*args_b))
+            err = max_abs_diff(launch_block(*args_b), want)
+            check(err == 0, f"ntt_block {shape} out_bt {out_bt} {direction} scales {kinds} "
+                            "equals its twin")
+            b = block_bound(shape, out_bt, pre, post)
+            products = block_products(shape, pre, post)
+            shapes.append({"shape": list(shape), "out_bt": out_bt, "direction": direction,
+                           "products": products,
+                           "throughput_ms": products / report["fr_mul_per_s"] * 1e3,
+                           "pre": kinds[0] and kinds[0][0], "post": kinds[1] and kinds[1][0],
+                           "ms": peaks.held_ms(lambda: launch_block(*args_b), 5),
+                           "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+                           "max_abs_err": err})
+            log(f"  ntt_block {shape} out_bt {out_bt} {direction} scales {kinds}: "
+                f"{shapes[-1]['ms']:.4f} ms, twin {plain_ms:.2f} ms, bound {b[0]:.6f} ms ({b[1]}), "
+                f"{products} products, {shapes[-1]['throughput_ms']:.4f} ms at the measured Fr "
+                f"rate [{card}]")
+            del x, want
+        # the report's row: the 2^20 transform's first pass (the largest
+        # launch with the twiddle after it)
+        ref = max((r for r in shapes if r["post"] == "product"), default=shapes[-1],
+                  key=lambda r: r["shape"][1] * r["shape"][2] * r["shape"][3])
+        kinfo["ntt_block"].update(
+            max_abs_err=max([kinfo["ntt_block"]["max_abs_err"]] + [r["max_abs_err"] for r in shapes]),
+            ms=ref["ms"], plain_ms=ref["plain_ms"], bound=(ref["bound_ms"], ref["bound_by"]),
+            shapes=shapes)
 
     if args.profile:
         with phase(f"profile of the evaluation-form path 2^{EXP_EVAL} and the batched verify"):
@@ -2049,7 +2236,8 @@ def main(argv=None) -> int:
         if not k.modes:
             info, name, source, launches = kinfo[k.name], k.name, k.source, counts[k.name]
             rows = [(name, source, launches, info,
-                     ("chain_ms", "throughput_ms", "k1_chain_ms", "shapes"))]
+                     ("chain_ms", "throughput_ms", "k1_chain_ms", "shapes", "transforms", "lanes",
+                      "widths"))]
         else:
             rows = [(f"{k.name}_{m}", k.modes[m], mode_totals[k.name][m],
                      kinfo[k.name]["modes"][m],

@@ -3,6 +3,7 @@ this checkout or in another tree, so that two versions compare in one call
 on one NVIDIA GPU.
 
     python3 kzg_tpu_torch/bench/paths.py [--root DIR] [--tag NAME] [--out JSON]
+                                         [--only SUBSTRING ...]
 
 `--root` is the directory that holds the `kzg_tpu_torch` package to time
 (default: this checkout); the script imports it from there, so a parent
@@ -19,8 +20,11 @@ kernels' self device time; one stream, so kernels never overlap), the idle
 share (1 - busy / wall) and the device time of K2 (every kernel whose name
 holds `add_kernel`, `dbl_kernel` or `pointwise_`), of K1 (`binary_kernel`,
 `mul_const_kernel`), of the scan and Horner kernels (`scan_kernel`,
-`horner_kernel`) and of K7 (`madd_multi`, either mode). Paths, with the
-inputs of `chip_smoke.py`'s counted phases (random, from a seed):
+`horner_kernel`), of K7 (`madd_multi`, either mode) and of K5 (`ntt_`:
+`ntt_block_kernel` and the per-stage `ntt_stage_kernel`). Paths, with the
+inputs of `chip_smoke.py`'s counted phases (random, from a seed); `--only`
+keeps the paths whose name holds one of the given strings (the inputs are
+built all the same):
   * setup_device(s, 2^20, g2_count=2), and commit and witness at 2^20, the
     witness's linear division alone;
   * commit and witness at 2^15, the witness's evaluation check and linear
@@ -31,7 +35,10 @@ inputs of `chip_smoke.py`'s counted phases (random, from a seed):
   * the evaluation-form commit and `create_witness` at d = 2^12 (one
     EIP-4844 blob, against the Lagrange SRS from the secret): a 2^12-point
     G1 MSM each, on the bucket loop (K7);
-  * msm_g2 over 2^12 and 2^15 random scalars.
+  * msm_g2 over 2^12 and 2^15 random scalars;
+  * the NTT-bound ones: `Domain(e).ntt` at 2^12, 2^15 and 2^20, the 2^20
+    coset division of the batched quotient (k = 16) alone, and
+    `verify_poly` at d = 2^12 (one inverse transform and a 2^12 MSM).
 Prints the card's name and power limit and one JSON line; writes it to
 --out when given.
 """
@@ -50,7 +57,8 @@ K_BATCH = 16
 GROUPS = {"k2": ("add_kernel", "dbl_kernel", "pointwise_"),
           "k1": ("binary_kernel", "mul_const_kernel"),
           "scan_horner": ("scan_kernel", "horner_kernel"),
-          "k7": ("madd_multi",)}
+          "k7": ("madd_multi",),
+          "ntt": ("ntt_",)}
 
 
 def _fr_words(torch, gen, n, dev, R):
@@ -88,6 +96,7 @@ def main(argv=None) -> int:
         os.path.abspath(__file__)))))
     ap.add_argument("--tag", default="")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--only", nargs="*", default=None)
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -99,13 +108,16 @@ def main(argv=None) -> int:
     from kzg_tpu_torch import kernels
     from kzg_tpu_torch.constants import R
     from kzg_tpu_torch.curve import G1, G2
+    from kzg_tpu_torch.fields import FR
     from kzg_tpu_torch.kzg import eval_form
     from kzg_tpu_torch.kzg.coeff_form import KZGProver, KZGVerifier
-    from kzg_tpu_torch.kzg.eval_form import KZGProverEvalForm, compute_lagrange_basis_from_secret
+    from kzg_tpu_torch.kzg.eval_form import (
+        KZGProverEvalForm, KZGVerifierEvalForm, compute_lagrange_basis_from_secret,
+    )
     from kzg_tpu_torch.kzg.srs import setup_device
     from kzg_tpu_torch.msm import msm_g2
     from kzg_tpu_torch.ntt import Domain
-    from kzg_tpu_torch.poly import Polynomial
+    from kzg_tpu_torch.poly import Polynomial, lagrange_interpolation, vanishing_poly
 
     if not kernels.__file__.startswith(root):
         print(f"paths: imported {kernels.__file__}, not from {root}", file=sys.stderr)
@@ -147,8 +159,15 @@ def main(argv=None) -> int:
     s12 = _fr_words(torch, gen, 1 << 12, dev, R)
     s15 = _fr_words(torch, gen, 1 << 15, dev, R)
     hs12 = tuple(t[..., :1 << 12] for t in p15.hs)
-    eprover = KZGProverEvalForm(p15, compute_lagrange_basis_from_secret(SEED, 12, device=dev))
+    lag12 = compute_lagrange_basis_from_secret(SEED, 12, device=dev)
+    eprover = KZGProverEvalForm(p15, lag12)
     evals12 = _fr_words(torch, gen, 1 << 12, dev, R)
+    everifier = KZGVerifierEvalForm(p15, lag12)
+    ecommit12 = eprover.commit(evals12)
+    ntt_x = {e: _fr_words(torch, gen, 1 << e, dev, R) for e in (12, 15, 20)}
+    xs20 = torch.from_numpy(FR.encode(xs)).to(dev)
+    numerator20 = poly20 - lagrange_interpolation(xs20, poly20.eval_many(xs20))
+    z20 = vanishing_poly(xs20)
 
     paths = {
         "setup_device 2^20": lambda: setup_device(SEED, 1 << 20, g2_count=2, device=dev),
@@ -169,7 +188,15 @@ def main(argv=None) -> int:
         "eval-form create_witness 2^12": lambda: eprover.create_witness(evals12, 1234),
         "msm_g2 2^12": lambda: msm_g2(hs12, s12),
         "msm_g2 2^15": lambda: msm_g2(p15.hs, s15),
+        "NTT 2^12": lambda: Domain(12).ntt(ntt_x[12]),
+        "NTT 2^15": lambda: Domain(15).ntt(ntt_x[15]),
+        "NTT 2^20": lambda: Domain(20).ntt(ntt_x[20]),
+        f"coset division 2^20, k = {K_BATCH}":
+            lambda: KZGProver._exact_div(numerator20, z20, xs_int=xs),
+        "verify_poly 2^12": lambda: everifier.verify_poly(ecommit12, evals12),
     }
+    if args.only:
+        paths = {k: v for k, v in paths.items() if any(o in k for o in args.only)}
     rows = []
     for name, fn in paths.items():
         fn()
@@ -193,12 +220,14 @@ def main(argv=None) -> int:
         rows.append({"path": name, "wall_ms": wall, "runs_ms": runs, "device_busy_ms": busy,
                      "k2_device_ms": groups["k2"], "k1_device_ms": groups["k1"],
                      "scan_horner_device_ms": groups["scan_horner"],
-                     "k7_device_ms": groups["k7"], "peak_mib": peak_mib,
+                     "k7_device_ms": groups["k7"], "ntt_device_ms": groups["ntt"],
+                     "peak_mib": peak_mib,
                      "launches": launches, "idle_share": max(0.0, 1 - busy / wall)})
         print(f"[{args.tag}] {name}: wall {wall:.2f} ms (runs "
               f"{', '.join(f'{t:.2f}' for t in runs)}), device busy {busy:.2f} ms, K2 "
               f"{groups['k2']:.3f} ms, K1 {groups['k1']:.3f} ms, scan / Horner "
-              f"{groups['scan_horner']:.3f} ms, K7 {groups['k7']:.3f} ms, idle "
+              f"{groups['scan_horner']:.3f} ms, K7 {groups['k7']:.3f} ms, K5 "
+              f"{groups['ntt']:.3f} ms, idle "
               f"{rows[-1]['idle_share']:.3f}, peak "
               f"{peak_mib:.1f} MiB above resident; launches {launches} [{card}]", flush=True)
     out = {"tag": args.tag, "root": root, "card": card, "build_s": build_s, "paths": rows}

@@ -1,5 +1,10 @@
-// Kernel K5: one decimation-in-frequency butterfly stage of the radix-2 NTT
-// over Montgomery Fr.
+// Kernel K5 over Montgomery Fr, in two entries: `kzg_ntt_block`, whole
+// sub-transforms in one launch (csrc/ntt_block.cuh: the Domain's route on
+// the card), and `kzg_ntt_stage`, one decimation-in-frequency butterfly
+// stage of the radix-2 NTT: the route as it was, kept as the reference the
+// block kernel is timed beside and for the plain Domain's stage loop.
+//
+// The stage kernel:
 //
 // Replaces `make_ntt_stage` (kzg_tpu/fields/pallas_field.py:346-364), which
 // every stage of the JAX package's Pease loop (kzg_tpu/ntt/domain.py:387-410)
@@ -27,8 +32,8 @@
 // Montgomery multiply (8-word CIOS, 128 32x32->64 multiply-adds) against
 // 3 x 32 B read + 2 x 32 B written per butterfly. At bt = 1 the stores to
 // rows 2j / 2j + 1 are 2-way strided, so a warp writes each 128-byte line
-// in two halves; a shared-memory transpose, several stages per launch and
-// a fused bit reversal are left for later work.
+// in two halves. ntt_block.cuh runs every stage of a sub-transform, the
+// bit reversal and the scales in one launch instead.
 //
 // C interface (ctypes): launches on the caller's stream, allocates nothing,
 // returns cudaGetLastError() of the launch.
@@ -36,6 +41,7 @@
 #include <cuda_runtime.h>
 
 #include "field.cuh"
+#include "ntt_block.cuh"
 
 using namespace kzg;
 
@@ -80,6 +86,21 @@ int kzg_ntt_stage(void* out, const void* x, const void* tw, long long nb, long l
       static_cast<uint32_t*>(out), static_cast<const uint32_t*>(x),
       static_cast<const uint32_t*>(tw), nb, m, bt, tlen, s);
   return (int)cudaGetLastError();
+}
+
+// (out, x, stage table (m, 8), columns nb * bt, log2 m, bt, out_bt, log2 cols,
+//  threads, then per scale (pre, post): hi or null, lo, mode, s, div; stream)
+int kzg_ntt_block(void* out, const void* x, const void* tw, long long ncol, int log_m,
+                  long long bt, long long out_bt, int log_cols, int threads,
+                  const void* pre_hi, const void* pre_lo, int pre_mode, int pre_s,
+                  long long pre_div, const void* post_hi, const void* post_lo, int post_mode,
+                  int post_s, long long post_div, void* stream) {
+  const NttScale pre{static_cast<const uint32_t*>(pre_hi), static_cast<const uint32_t*>(pre_lo),
+                     pre_mode, pre_s, pre_div};
+  const NttScale post{static_cast<const uint32_t*>(post_hi),
+                      static_cast<const uint32_t*>(post_lo), post_mode, post_s, post_div};
+  return launch_ntt_block<kNttTw>(out, x, tw, ncol, log_m, bt, out_bt, log_cols, threads, pre,
+                                  post, stream);
 }
 
 }  // extern "C"

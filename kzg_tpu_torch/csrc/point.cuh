@@ -13,7 +13,7 @@
 // This header holds the device functions, the kernel templates and their
 // launchers; the C entry points that instantiate them are split over
 // point_kernels.cu (G1) and, for G2, point_g2_kernels.cu (add / dbl),
-// madd_g2_kernels.cu, madd_multi_g2_kernels.cu and msm_g2_kernels.cu
+// madd_multi_g2_kernels.cu and msm_g2_kernels.cu
 // (bucket_accumulate), one nvcc process each, so the long Fp2 compilations
 // run side by side. K4, the window join, has a design of its own
 // (horner.cuh), as have the narrow modes of K2 (pointwise.cuh) and K7
@@ -265,26 +265,6 @@ dbl_kernel(uint32_t* __restrict__ ox, uint32_t* __restrict__ oy, uint32_t* __res
   store_point<E>(ox, oy, oz, n, i, dbl_inline(load_point<E>(x, y, z, n, i)));
 }
 
-// Jacobian p + affine q with a skip mask (1 = keep p): the standalone
-// madd entry. Precedence as CurveOps.madd: skip -> p; p infinite ->
-// (x2, y2, 1); same point -> dbl(p); opposite -> infinity.
-template <class E>
-__global__ void __launch_bounds__(kPointThreads)
-madd_kernel(uint32_t* __restrict__ ox, uint32_t* __restrict__ oy, uint32_t* __restrict__ oz,
-            const uint32_t* __restrict__ x1, const uint32_t* __restrict__ y1,
-            const uint32_t* __restrict__ z1, const uint32_t* __restrict__ x2,
-            const uint32_t* __restrict__ y2, const uint8_t* __restrict__ skip, long long n) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Jac<E> p = load_point<E>(x1, y1, z1, n, i);
-  if (skip[i]) {
-    store_point<E>(ox, oy, oz, n, i, p);
-    return;
-  }
-  store_point<E>(ox, oy, oz, n, i,
-                 madd(p, Coord<E>::load(x2, n, i), Coord<E>::load(y2, n, i)));
-}
-
 // K7's wide mode, one thread a lane: S skip-masked, optionally negated
 // mixed adds per lane, the accumulator held in registers across the steps,
 // the fused step of the bucket loop on the launches whose lanes fill the
@@ -293,7 +273,8 @@ madd_kernel(uint32_t* __restrict__ ox, uint32_t* __restrict__ oy, uint32_t* __re
 // coordinate batch of steps * n affine points, step-major (point s of lane
 // i at s * n + i); skip / neg: (steps, n) bytes, skip non-zero leaves the
 // lane as it is, neg non-zero adds -q = (x, -y); neg may be null. Each live
-// step as madd_kernel.
+// step is `madd` below: skip -> p; p infinite -> (x2, y2, 1); same point ->
+// dbl(p); opposite -> infinity.
 //
 // The sweep of bench/madd_multi.py on an H100 (700 W; PERF.md) kept this
 // shape for both groups, against 64-thread blocks, 1-4 resident blocks an
@@ -392,18 +373,6 @@ int launch_dbl(void* ox, void* oy, void* oz, const void* x, const void* y, const
       static_cast<uint32_t*>(ox), static_cast<uint32_t*>(oy), static_cast<uint32_t*>(oz),
       static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(y),
       static_cast<const uint32_t*>(z), n);
-  return (int)cudaGetLastError();
-}
-
-template <class E>
-int launch_madd(void* ox, void* oy, void* oz, const void* x1, const void* y1, const void* z1,
-                const void* x2, const void* y2, const void* skip, long long n, void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
-  madd_kernel<E><<<blocks_for(n), kPointThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint32_t*>(ox), static_cast<uint32_t*>(oy), static_cast<uint32_t*>(oz),
-      static_cast<const uint32_t*>(x1), static_cast<const uint32_t*>(y1),
-      static_cast<const uint32_t*>(z1), static_cast<const uint32_t*>(x2),
-      static_cast<const uint32_t*>(y2), static_cast<const uint8_t*>(skip), n);
   return (int)cudaGetLastError();
 }
 

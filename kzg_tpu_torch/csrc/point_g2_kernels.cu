@@ -10,7 +10,7 @@
 // an Fp2 S 2: add 43, dbl 16 Fp multiplications) and registers: a G2
 // Jacobian point is 72 words, so these entries spill to local memory.
 // Every Fp2 kernel has a translation unit of its own (this one,
-// madd_g2_kernels.cu, msm_g2_kernels.cu, horner_g2_kernels.cu): ptxas takes
+// madd_multi_g2_kernels.cu, msm_g2_kernels.cu, horner_g2_kernels.cu): ptxas takes
 // a minute or more for each, and the build runs one nvcc per source.
 //
 // C interface (ctypes): each entry launches on the caller's stream,

@@ -1,4 +1,5 @@
-// Kernels K2-K4, K6 and K7 over Fp: the G1 point kernels.
+// Kernels K2-K4 and K7 over Fp: the G1 point kernels (K6, the mixed add,
+// runs on K7's narrow entry at S = 1: curve/cuda_ops.py).
 //
 // The arithmetic, kernel templates and layouts are in point.cuh; this file
 // instantiates them for G1 (coordinates (12, n) words).
@@ -12,12 +13,6 @@
 //     (kzg_g1_add_narrow / kzg_g1_dbl_narrow, pointwise.cuh): two points a
 //     block, each level's products side by side over 16 lanes each, bound
 //     by one point's chain of dependent products.
-// K6  kzg_g1_madd                 replaces _PointKernels.madd
-//     (pallas_ops.py:270, `_madd_vals` :122-156). One thread per lane:
-//     Jacobian + affine madd-2007-bl (7M + 4S) under a skip mask, with the
-//     p-infinite / same / opposite cases. It serves the digit ladder
-//     (CurveOps.scalar_mul_digits), where the plain tensor formula was ~25
-//     field-kernel launches and a host read per madd. Bound as K2.
 // K7  kzg_g1_madd_multi / kzg_g1_madd_multi_narrow  replace
 //     _PointKernels.madd_multi (pallas_ops.py:275): S skip-masked,
 //     optionally negated madds per bucket lane in one launch, the fused
@@ -84,13 +79,6 @@ int kzg_g1_add_narrow(void* ox, void* oy, void* oz, const void* x1, const void* 
 int kzg_g1_dbl_narrow(void* ox, void* oy, void* oz, const void* x, const void* y,
                       const void* z, long long n, void* stream) {
   return launch_pointwise_dbl<HornerProgG1>(ox, oy, oz, x, y, z, n, stream);
-}
-
-// (x2, y2) affine, skip (n) bytes: non-zero keeps p
-int kzg_g1_madd(void* ox, void* oy, void* oz, const void* x1, const void* y1,
-                const void* z1, const void* x2, const void* y2, const void* skip,
-                long long n, void* stream) {
-  return launch_madd<FpE>(ox, oy, oz, x1, y1, z1, x2, y2, skip, n, stream);
 }
 
 // acc (12, n); qx / qy (12, steps, n); skip / neg (steps, n) bytes (neg may be null)

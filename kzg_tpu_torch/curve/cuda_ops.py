@@ -3,7 +3,7 @@
 The kernel templates live in `csrc/point.cuh` over the Montgomery
 arithmetic of `csrc/field.cuh`; `csrc/point_kernels.cu` instantiates them
 for G1 and, one source a kernel so that their long compilations run side by
-side, `csrc/point_g2_kernels.cu` (add / dbl), `csrc/madd_g2_kernels.cu`,
+side, `csrc/point_g2_kernels.cu` (add / dbl),
 `csrc/madd_multi_g2_kernels.cu`, `csrc/msm_g2_kernels.cu`
 (bucket_accumulate) and `csrc/horner_g2_kernels.cu` for G2. G1
 coordinates are limb-major (12, n) int32 words, G2 coordinates (12, 2, n)
@@ -71,11 +71,12 @@ and K4 keeps infinity fixed through its doublings. K3's 72-word accumulator
 and 48-word point spill; accepted for a first version.
 
 K6 `madd` / `g2_madd` replace `_PointKernels.madd` (`pallas_ops.py:270`,
-`_madd_vals` `:122-156`): one thread per lane, Jacobian + affine under a
-skip mask, precedence skip -> p, p infinite -> (x2, y2, 1), same -> dbl(p),
-opposite -> (1, 1, 0). It is the body of the digit ladder
-(`CurveOps.scalar_mul_digits`) behind the Lagrange-SRS group iNTT. Bound as
-K2: one thread's chain of field multiplications (7M + 4S).
+`_madd_vals` `:122-156`): Jacobian + affine under a skip mask, precedence
+skip -> p, p infinite -> (x2, y2, 1), same -> dbl(p), opposite -> (1, 1, 0).
+They run K7's narrow kernel (`csrc/madd_multi.cuh`) at S = 1 with no neg
+mask, which computes exactly this function (two lanes a block, each
+product over 16 lanes), counted as K6. No path launches them: the digit
+ladder runs its madd inside the ladder kernel.
 
 K7 `madd_multi` / `g2_madd_multi` replace `_PointKernels.madd_multi`
 (`pallas_ops.py:275`): S skip-masked, optionally negated madds per lane in
@@ -112,7 +113,6 @@ Each wrapper takes the plain twin for CPU tensors and launches its kernel
 for CUDA tensors; `*_plain` are the twins, usable on any device.
 """
 
-import functools
 import math
 from dataclasses import dataclass
 
@@ -220,9 +220,7 @@ def pointwise_mode(n: int, sm_count: int, min_blocks: int, waves: int) -> str:
     return "narrow" if n <= waves * sm_count * min_blocks * _NARROW_LANES else "wide"
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
+_sm_count = kernels.sm_count
 
 
 def width_mode(group, op: str, n: int, device) -> str:
@@ -285,15 +283,15 @@ def _dbl(group, p, mode=None):
 def _madd(group, p, q_affine, skip):
     if _is_cpu(p[0]):
         return group.plain.madd(p, q_affine, skip)
-    batch = p[0].shape[len(group.lead):]
+    lead = len(group.lead)
+    batch = p[0].shape[lead:]
     if skip.dtype != torch.bool or tuple(skip.shape) != tuple(batch):
         raise kernels.KernelError(
             f"{group.name}_madd: skip must be a bool {tuple(batch)} mask, got "
             f"{skip.dtype} {tuple(skip.shape)}"
         )
-    q_affine = tuple(t.expand(p[0].shape) for t in q_affine)
-    mask = skip.reshape(-1).contiguous().view(torch.uint8)
-    return _launch(group, "madd", (*p, *q_affine), (mask,))
+    q_affine = tuple(t.expand(p[0].shape).unsqueeze(lead) for t in q_affine)
+    return _madd_multi(group, p, q_affine, skip.unsqueeze(0), None, "narrow", counter="madd")
 
 
 def add_plain(p, q):
@@ -365,7 +363,7 @@ def _mask_bytes(t: torch.Tensor) -> torch.Tensor:
     return b if b.data_ptr() % 4 == 0 else b.clone()
 
 
-def _madd_multi(group, acc, q_affine, skip, neg, mode=None):
+def _madd_multi(group, acc, q_affine, skip, neg, mode=None, counter="madd_multi"):
     if _is_cpu(acc[0]):
         return group.plain.madd_multi(acc, q_affine, skip, neg)
     what = f"{group.name}_madd_multi"
@@ -398,7 +396,8 @@ def _madd_multi(group, acc, q_affine, skip, neg, mode=None):
     rc = entry(*_ptrs(out), *_ptrs(ins), *(None if m is None else m.data_ptr() for m in masks),
                steps, n, kernels.stream_handle(dev))
     kernels.check_status(rc, f"{what} ({mode})")
-    group.counter("madd_multi").count(mode)
+    rec = group.counter(counter)
+    rec.count(mode if rec.modes else None)
     return tuple(o.reshape(shape) for o in out)
 
 

@@ -24,8 +24,15 @@ canonical Montgomery integers, so they agree bit for bit.
 `binary` / `mul_const` are the wrappers: a CPU tensor takes the plain twin,
 a CUDA tensor launches K1 (or raises), any other device raises.
 
-Kernel K5 (`ntt_stage`, `csrc/ntt_kernels.cu`), the NTT butterfly stage
-that replaces `make_ntt_stage` (`pallas_field.py:346`), is wrapped here too,
+Kernel K5 replaces `make_ntt_stage` (`pallas_field.py:346`) in two
+entries, wrapped here. `ntt_block` (`csrc/ntt_block.cuh`, counted as
+`ntt_block`) is the Domain's route: one launch transforms every column of
+an (8, nb, m, bt) array, m <= 2^12, all stages in shared memory, natural
+order out, with per-element scales (`NttScale`: the coset powers, 1/d,
+the four-step twiddle) fused before and after and an optional output
+column stride (the four-step transpose); plain twin `ntt_block_plain`.
+`ntt_stage` (`csrc/ntt_kernels.cu`) is one butterfly stage a launch, the
+route as it was (the stage loop of `Domain.as_plain()` / `as_stages()`),
 with its plain twins `ntt_stage_plain` (the butterfly) and
 `ntt_stage_layout_plain` (the whole stage with K5's twiddle indexing and
 interleaved output).
@@ -70,6 +77,7 @@ route it replaced.
 """
 
 import ctypes
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -621,4 +629,187 @@ def ntt_stage(x: torch.Tensor, tw: torch.Tensor, s: int) -> torch.Tensor:
     )
     kernels.check_status(rc, f"ntt_stage {tuple(x.shape)} s={s}")
     _K5.launches += 1
+    return out
+
+
+# ---- K5 as a block transform: whole sub-transforms a launch ---------------------------
+
+_K5B = kernels.REGISTRY["ntt_block"]
+NTT_TILE_EXP = 12  # elements a tile, log2 (csrc/ntt_block.cuh kNttTileExp)
+NTT_MAX_THREADS = 1024
+_SCALE_MODES = {"const": 1, "linear": 2, "product": 3}
+
+
+@dataclass(frozen=True)
+class NttScale:
+    """A per-element factor of `ntt_block`'s input (pre) or output (post).
+    Tables are element-major (len, 8) int32 Montgomery words on the data's
+    device. `kind`: "const" (lo[0]), "linear" (base^e with e = r * bt + c:
+    row r, column c of the transform) or "product" (e = r * (c // div)).
+    base^e = hi[e >> s] * lo[e & (2^s - 1)], or lo[e] when hi is None."""
+
+    kind: str
+    lo: torch.Tensor
+    hi: torch.Tensor | None = None
+    s: int = 0
+    div: int = 1
+
+    def exponents(self, m: int, bt: int, device) -> torch.Tensor:
+        """(m, bt) int64 exponents e of rows r < m, columns c < bt."""
+        r = torch.arange(m, device=device).reshape(m, 1)
+        c = torch.arange(bt, device=device).reshape(1, bt)
+        return r * bt + c if self.kind == "linear" else r * (c // self.div)
+
+    def values(self, m: int, bt: int, mul) -> torch.Tensor:
+        """(8, m, bt) words of the factor (a (8, 1, 1) column for "const"),
+        the split tables joined with `mul`."""
+        if self.kind == "const":
+            return self.lo[0].reshape(8, 1, 1)
+        e = self.exponents(m, bt, self.lo.device)
+        if self.hi is None:
+            return self.lo[e].permute(2, 0, 1)
+        lo = self.lo[e & ((1 << self.s) - 1)].permute(2, 0, 1)
+        return mul(self.hi[e >> self.s].permute(2, 0, 1), lo)
+
+
+def _scaled_plain(x: torch.Tensor, sc: NttScale | None) -> torch.Tensor:
+    """x (8, nb, m, bt) times the scale, on the plain twin."""
+    if sc is None:
+        return x
+    fr = _fr()
+
+    def mul(a, b):
+        return binary_plain(fr, MUL, a, b)
+
+    return mul(x, sc.values(x.shape[2], x.shape[3], mul).unsqueeze(1))
+
+
+def _out_layout(x: torch.Tensor, out_bt: int) -> torch.Tensor:
+    """(8, nb, m, bt) -> (8, nb * bt / out_bt, m, out_bt): the same columns
+    q = b * bt + c, each of its m rows, with another column stride."""
+    W, nb, m, bt = x.shape
+    if out_bt == bt:
+        return x
+    cols = x.permute(0, 1, 3, 2).reshape(W, nb * bt // out_bt, out_bt, m)
+    return cols.permute(0, 1, 3, 2).contiguous()
+
+
+def ntt_block_plain(x: torch.Tensor, tw: torch.Tensor, pre: NttScale | None = None,
+                    post: NttScale | None = None, out_bt: int | None = None) -> torch.Tensor:
+    """Plain twin of `ntt_block` on any device: every column of x
+    (8, nb, m, bt) times `pre`, transformed along axis 2 by the DIF stages
+    of the stage table tw ((m, 8): tw[h + j] = omega_m^(j m / 2h)), in
+    natural order, laid out with column stride out_bt (default bt), times
+    `post`. The forward NTT for the powers of omega, the inverse one
+    without its 1/m for those of omega^-1."""
+    fr = _fr()
+    W, nb, m, bt = x.shape
+    x = _scaled_plain(x, pre)
+    tws = tw.t()
+    h = m // 2
+    while h >= 1:
+        xs = x.reshape(W, nb, m // (2 * h), 2, h, bt)
+        a, b = xs[:, :, :, 0], xs[:, :, :, 1]
+        w = tws[:, h:2 * h].reshape(W, 1, 1, h, 1)
+        u = binary_plain(fr, ADD, a, b)
+        v = binary_plain(fr, MUL, binary_plain(fr, SUB, a, b), w)
+        x = torch.stack([u, v], dim=3).reshape(W, nb, m, bt)
+        h //= 2
+    rev = torch.from_numpy(bitrev_perm(m.bit_length() - 1)).to(x.device)
+    x = torch.index_select(x, 2, rev)
+    return _scaled_plain(_out_layout(x, out_bt or bt), post)
+
+
+def bitrev_perm(log_n: int) -> np.ndarray:
+    """The bit-reversal permutation of 2^log_n indices."""
+    idx = np.arange(1 << log_n)
+    rev = np.zeros_like(idx)
+    for b in range(log_n):
+        rev |= ((idx >> b) & 1) << (log_n - 1 - b)
+    return rev
+
+
+def ntt_block_cols(log_m: int, ncol: int, sms: int) -> int:
+    """Columns a tile: two tiles an SM where the columns allow it, at least
+    256 elements a tile, at most 2^NTT_TILE_EXP and no more columns than
+    there are (the fastest tiles of `bench.ntt`'s sweep at 2^15 and 2^20,
+    H100)."""
+    per = max(1, ncol // (2 * sms)).bit_length() - 1
+    floor = max(0, 8 - log_m)
+    return 1 << min(max(per, floor), NTT_TILE_EXP - log_m, (ncol - 1).bit_length())
+
+
+def ntt_block_threads(log_m: int, cols: int, blocks: int, sms: int) -> int:
+    """Threads a block: one a butterfly of the tile up to 256, or up to
+    NTT_MAX_THREADS where the blocks do not fill the SMs (a single 2^12
+    transform), a multiple of 32 (`bench.ntt`'s sweep, H100)."""
+    top = NTT_MAX_THREADS if blocks < sms else 256
+    return min(top, max(32, -(-((cols << log_m) // 2) // 32) * 32))
+
+
+def _scale_args(sc: NttScale | None, device):
+    if sc is None:
+        return (None, None, 0, 0, 1)
+    if sc.kind not in _SCALE_MODES:
+        raise kernels.KernelError(f"ntt_block: scale kind {sc.kind!r}")
+    for t in (sc.lo,) if sc.hi is None else (sc.lo, sc.hi):
+        if (t.dtype != torch.int32 or t.device != device or t.dim() != 2 or t.shape[1] != 8
+                or not t.is_contiguous()):
+            raise kernels.KernelError(
+                f"ntt_block: scale tables must be contiguous int32 (len, 8) on {device}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    return (None if sc.hi is None else sc.hi.data_ptr(), sc.lo.data_ptr(),
+            _SCALE_MODES[sc.kind], sc.s, sc.div)
+
+
+def ntt_block(x: torch.Tensor, tw: torch.Tensor, pre: NttScale | None = None,
+              post: NttScale | None = None, out_bt: int | None = None,
+              cols: int | None = None, threads: int | None = None,
+              entry=None) -> torch.Tensor:
+    """K5 as a block transform (see `ntt_block_plain`): one launch
+    transforms every column of x (8, nb, m, bt), m = 2^e <= 2^NTT_TILE_EXP,
+    with the pre and post scales and the output's column stride out_bt.
+    The plain twin for CPU tensors, the CUDA kernel for CUDA tensors.
+    `cols` (a power of two) overrides the columns a tile
+    (`ntt_block_cols`) and `threads` the threads a block (a multiple of 32
+    up to NTT_MAX_THREADS; `ntt_block_threads`) and `entry` (a C function
+    of `kzg_ntt_block`'s signature) the library's: the bench's sweep.
+    Returns a new (8, nb * bt / out_bt, m, out_bt) tensor."""
+    if x.dim() != 4 or tw.dim() != 2:
+        raise kernels.KernelError(
+            f"ntt_block: x must be (8, nb, m, bt) and tw (m, 8), got {tuple(x.shape)} and "
+            f"{tuple(tw.shape)}")
+    W, nb, m, bt = x.shape
+    out_bt = out_bt or bt
+    log_m = m.bit_length() - 1
+    ncol = nb * bt
+    if (m < 2 or m != 1 << log_m or log_m > NTT_TILE_EXP or tuple(tw.shape) != (m, 8)
+            or ncol % out_bt):
+        raise kernels.KernelError(
+            f"ntt_block: m a power of two in [2, 2^{NTT_TILE_EXP}], tw (m, 8), out_bt | nb bt; "
+            f"got x {tuple(x.shape)}, tw {tuple(tw.shape)}, out_bt {out_bt}")
+    if _device_kind(x) == "cpu":
+        return ntt_block_plain(x, tw, pre, post, out_bt)
+    fr = _fr()
+    _check_operand(fr, x, x.device)
+    if tw.dtype != torch.int32 or tw.device != x.device:
+        raise kernels.KernelError(f"ntt_block: tw must be int32 on {x.device}")
+    x = x.contiguous()
+    tw = tw.contiguous()
+    out = torch.empty((W, ncol // out_bt, m, out_bt), dtype=torch.int32, device=x.device)
+    if ncol == 0:
+        return out
+    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    sms = kernels.sm_count(index)
+    cols = cols or ntt_block_cols(log_m, ncol, sms)
+    log_cols = cols.bit_length() - 1
+    if cols != 1 << log_cols or log_m + log_cols > NTT_TILE_EXP:
+        raise kernels.KernelError(f"ntt_block: {cols} columns of 2^{log_m} exceed a tile")
+    threads = threads or ntt_block_threads(log_m, cols, -(-ncol // cols), sms)
+    rc = (entry or kernels.library().kzg_ntt_block)(
+        out.data_ptr(), x.data_ptr(), tw.data_ptr(), ncol, log_m, bt, out_bt, log_cols, threads,
+        *_scale_args(pre, x.device), *_scale_args(post, x.device),
+        kernels.stream_handle(x.device))
+    kernels.check_status(rc, f"ntt_block {tuple(x.shape)} out_bt={out_bt} cols={cols}")
+    _K5B.launches += 1
     return out

@@ -13,10 +13,14 @@ point, its source, the Pallas kernel it replaces, and `launches`, the count
 its wrapper increments each time it launches the kernel on the card. K2's
 `add` and `dbl` and K7's `madd_multi` run in two modes, picked by the
 width (`curve.cuda_ops`): their records also name each mode's source and
-count its launches apart.
+count its launches apart. K6's `madd` is K7's narrow entry at S = 1 with a
+record and a count of its own. K5 has two entries with a record each:
+`ntt_block` (whole sub-transforms a launch, the Domain's route on the card)
+and `ntt_stage` (one butterfly stage a launch, the route as it was).
 """
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -31,11 +35,12 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "kzg_tpu_torch"
 SOURCES = ("field_kernels.cu", "point_kernels.cu", "ntt_kernels.cu",
-           "point_g2_kernels.cu", "madd_g2_kernels.cu", "madd_multi_g2_kernels.cu",
+           "point_g2_kernels.cu", "madd_multi_g2_kernels.cu",
            "msm_g2_kernels.cu", "horner_g2_kernels.cu", "mxu_kernels.cu", "ladder_kernels.cu",
            "pointwise_g2_kernels.cu", "scan_kernels.cu")
 HEADERS = ("field.cuh", "point.cuh", "coop.cuh", "horner.cuh", "horner_schedule.cuh",
-           "pair.cuh", "ladder.cuh", "pointwise.cuh", "madd_multi.cuh", "scan.cuh")
+           "pair.cuh", "ladder.cuh", "pointwise.cuh", "madd_multi.cuh", "scan.cuh",
+           "ntt_block.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -91,15 +96,18 @@ REGISTRY = {
                "kzg_tpu/curve/pallas_ops.py:590"),
         Kernel("ntt_stage", "kzg_tpu_torch/csrc/ntt_kernels.cu",
                "kzg_tpu/fields/pallas_field.py:346"),
+        # whole sub-transforms of make_ntt_stage's loop, bit reversal and scales fused
+        Kernel("ntt_block", "kzg_tpu_torch/csrc/ntt_block.cuh",
+               "kzg_tpu/fields/pallas_field.py:346"),
         # the ncomp=2 (Fp2) instantiations of _PointKernels.add / .dbl
         _modes("g2_add", "kzg_tpu/curve/pallas_ops.py:712", "pointwise_g2_kernels.cu",
                "point_g2_kernels.cu"),
         _modes("g2_dbl", "kzg_tpu/curve/pallas_ops.py:707", "pointwise_g2_kernels.cu",
                "point_g2_kernels.cu"),
-        # _PointKernels.madd, ncomp=1 and 2
-        Kernel("g1_madd", "kzg_tpu_torch/csrc/point_kernels.cu",
+        # _PointKernels.madd, ncomp=1 and 2: K7's narrow kernel at S = 1
+        Kernel("g1_madd", "kzg_tpu_torch/csrc/madd_multi.cuh",
                "kzg_tpu/curve/pallas_ops.py:270"),
-        Kernel("g2_madd", "kzg_tpu_torch/csrc/madd_g2_kernels.cu",
+        Kernel("g2_madd", "kzg_tpu_torch/csrc/madd_multi.cuh",
                "kzg_tpu/curve/pallas_ops.py:270"),
         # _PointKernels.madd_multi, ncomp=1 and 2
         _modes("g1_madd_multi", "kzg_tpu/curve/pallas_ops.py:275", "point_kernels.cu",
@@ -236,6 +244,10 @@ _SIGNATURES = {
     "kzg_g2_dbl_narrow": (_P,) * 6 + (_N, _P),
     # (out, x, twiddles, nb, m, bt, table length, stage, stream)
     "kzg_ntt_stage": (_P,) * 3 + (_N,) * 4 + (_I, _P),
+    # (out, x, stage table, columns, log2 m, bt, out_bt, log2 cols, threads,
+    #  pre hi, pre lo, pre mode, pre s, pre div, the same for post, stream)
+    "kzg_ntt_block": (_P,) * 3 + (_N, _I, _N, _N, _I, _I) + ((_P, _P, _I, _I, _N) * 2)
+                     + (_P,),
     # (ox, oy, oz, rows, order, sub-run pos, sub-run len, sub-runs, stream)
     "kzg_g1_bucket_accumulate": (_P,) * 7 + (_N, _P),
     # (ox, oy, oz, sx, sy, sz, windows, c, stream)
@@ -243,9 +255,6 @@ _SIGNATURES = {
     # G2: rows (n, 48), outputs (12, 2, W, B) / (12, 2)
     "kzg_g2_bucket_accumulate": (_P,) * 7 + (_N, _P),
     "kzg_g2_horner_join": (_P,) * 6 + (_I, _I, _P),
-    # (ox, oy, oz, x1, y1, z1, x2, y2, skip bytes, n, stream)
-    "kzg_g1_madd": (_P,) * 9 + (_N, _P),
-    "kzg_g2_madd": (_P,) * 9 + (_N, _P),
     # (ox, oy, oz, ax, ay, az, qx, qy, skip bytes, neg bytes or null, steps, n, stream);
     # the wide mode, one thread a lane, and the narrow mode, two lanes a block
     "kzg_g1_madd_multi": (_P,) * 10 + (_I, _N, _P),
@@ -281,6 +290,14 @@ def library():
                 f.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """The SM count of CUDA device `device_index` (the launch rules' unit)."""
+    import torch
+
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def stream_handle(device):

@@ -1,8 +1,35 @@
 """Radix-2 NTT over Fr and the evaluation-domain bookkeeping (port of
 `kzg_tpu/ntt/domain.py`).
 
-The same algorithm as the JAX package, so outputs (canonical Montgomery
-words) are equal:
+Outputs are canonical Montgomery words, the same as the JAX package's,
+whatever decomposition of the DFT computes them. Two routes:
+
+The card's route (a `Domain` on CUDA tensors, and on CPU tensors through
+the kernel's plain twin): kernel K5 as a block transform,
+`fields.cuda_field.ntt_block`, which runs every DIF stage of a
+sub-transform of up to 2^BLOCK_MAX_EXP points in shared memory in one
+launch, writes natural order (the bit reversal stays on chip) and
+multiplies its input and output by per-element scales:
+
+  * 2^e <= 2^BLOCK_MAX_EXP points: one launch, the coset powers fused
+    into its loads, the 1/d scale (and the inverse coset powers) into its
+    stores;
+  * up to 2^(2 BLOCK_MAX_EXP): the four-step (Bailey) decomposition, d =
+    R C, in two launches: C-point transforms along the major axis with the
+    coset powers fused before and the twiddle W[k2, j1] = omega^(j1 k2)
+    after, then R-point transforms that read each row of the first pass's
+    output as a contiguous transform and store it transposed, with the 1/d
+    and inverse coset scales fused (`_block_axis2`);
+  * above that (no path gets there), the same four-step recursion along
+    axis 2, a sub-pass that is itself four-stepped taking the twiddle as a
+    K1 product and the transpose as a copy.
+
+This differs from the reference's routing, which runs the Pease loop below
+2^ntt_four_step_min_exp (16) points and the four-step at and above it: the
+card's route four-steps only above 2^BLOCK_MAX_EXP, whatever that setting.
+
+The reference's route (`as_plain()`, the twin that `chip_smoke.py` holds
+the card against, and every domain under `config.ntt_mxu`):
 
   * decimation-in-frequency stages over an (8, *batch, n) word array: the
     Pease constant-geometry loop (every stage pairs the two halves and
@@ -13,24 +40,23 @@ words) are equal:
   * one bit-reversal gather at the end (`torch.index_select`);
   * the inverse is the forward loop over the inverse table plus a 1/n
     Montgomery scale; coset transforms multiply by powers of g = 7.
-
-Every butterfly stage is kernel K5 (`fields.cuda_field.ntt_stage`): one
-launch per stage that reads its twiddles from the domain's half table and
-writes the interleaved layout the next stage reads, where the JAX package
-built a broadcast twiddle tensor per stage and interleaved with a stack /
-reshape. The other field math runs on K1.
+Every butterfly stage there is one K5 stage (`fields.cuda_field.ntt_stage`,
+on the plain twin `ntt_stage_layout_plain` in `as_plain()`): one launch per
+stage that reads its twiddles from the domain's half table and writes the
+interleaved layout the next stage reads.
 
 Tables are built from host ints as in the JAX package (`Domain._powers`),
 kept as numpy words, and copied to each device on first use. Above
 2^_BIG_TABLE_EXP no O(n) table is built: the coset powers and the four-step
 twiddles use split tables, v[i] = HI[i >> s] * LO[i & (2^s - 1)].
+`ntt_block` reads its tables element-major, (len, 8) words.
 
 With `config.ntt_mxu` on for the tensor's device (`ntt/mxu.py`; off by
 default, as in the JAX package) every domain above 2^7 points four-steps
 down to matmul-DFT leaves: `_fs_split` pins the first factor to 2^7 above
 2^14 points (2^20 -> (7, 13) -> (7, 6): three matmul passes), `_ntt_axis2`
 sends blocks of up to 2^7 points to `mxu.dft_axis2` (the product and kernel
-K9) and larger ones to `_four_step_axis2`, and no butterfly stage runs.
+K9) and larger ones to `_four_step_axis2`, and no K5 entry launches there.
 
 Omega derivation matches the reference: omega = ROOT_OF_UNITY^(2^(S - exp))
 with S = 32, and exp >= S is a PolynomialDegreeTooLarge error.
@@ -52,14 +78,13 @@ from . import mxu
 # their dense stage tables.
 _BIG_TABLE_EXP = 17
 
-
-def _bitrev_perm(log_n: int) -> np.ndarray:
-    n = 1 << log_n
-    idx = np.arange(n)
-    rev = np.zeros(n, dtype=np.int64)
-    for b in range(log_n):
-        rev |= ((idx >> b) & 1) << (log_n - 1 - b)
-    return rev
+# The largest transform `ntt_block` runs in one launch (a tile of 2^12 Fr
+# elements is 128 KB of shared memory; csrc/ntt_block.cuh), T: the card's
+# route four-steps above 2^T points. Tests lower it to reach the four-step
+# composition and its recursion at small sizes.
+BLOCK_MAX_EXP = 12
+# Dense per-element scale tables up to 2^this entries, split tables above.
+_DENSE_SCALE_EXP = 12
 
 
 def compute_omega(num_coeffs: int):
@@ -78,9 +103,10 @@ class Domain:
     """A 2^exp evaluation domain over Fr with cached twiddles. Input and
     output: (8, *batch, d) Montgomery Fr words on any one device.
 
-    One instance per exp (`Domain(exp)` returns the cached one).
-    `as_plain()` gives a twin of the domain whose stages and field math are
-    the plain PyTorch versions on every device (the reference that
+    One instance per exp (`Domain(exp)` returns the cached one); it takes
+    the `ntt_block` route. `as_plain()` gives a twin of the domain that
+    takes the reference's route of stages, with the plain PyTorch versions
+    of the stage and the field math on every device (the reference that
     `chip_smoke.py` holds the kernels against on the card)."""
 
     _cache = {}
@@ -109,14 +135,16 @@ class Domain:
         self.F = FR
         self.stage = cuda_field.ntt_stage
         self.plain = False
+        self.block = True  # the ntt_block route (False: the reference's stage loop)
         self._twin = None
+        self._stages_twin = None
         self._dev = {}  # (table name, device) -> tensor
         self._fs = {}  # (inverse, exp_r) -> four-step constants
         self._tables = {"dinv": FR.encode([self.d_inv])[:, 0]}
         half = max(1, self.d // 2)
         if exp < _BIG_TABLE_EXP:
             self._tables.update(
-                bitrev=_bitrev_perm(exp),
+                bitrev=cuda_field.bitrev_perm(exp),
                 tw_fwd=self._powers(self.omega, half),
                 tw_inv=self._powers(self.omega_inv, half),
                 coset_fwd=self._powers(self.gen, self.d),
@@ -139,30 +167,46 @@ class Domain:
         self._ready = True
 
     def as_plain(self) -> "Domain":
-        """This domain with the plain PyTorch K5 stage and plain field ops,
-        whatever the device (shares the tables)."""
+        """This domain on the reference's route with the plain PyTorch K5
+        stage and plain field ops, whatever the device (shares the
+        tables)."""
         if self.plain:
             return self
         if self._twin is None:
-            twin = object.__new__(Domain)  # not cached: Domain(exp) stays the kernel one
-            twin.__dict__.update(self.__dict__)
-            twin.F = FR.as_plain()
-            twin.stage = cuda_field.ntt_stage_layout_plain
-            twin.plain = True
-            twin._twin = twin
-            self._twin = twin
+            self._twin = self._variant(FR.as_plain(), cuda_field.ntt_stage_layout_plain, True)
         return self._twin
+
+    def as_stages(self) -> "Domain":
+        """This domain on the reference's route as the card ran it before
+        `ntt_block`: one K5 stage launch a stage (`cuda_field.ntt_stage`),
+        the bit reversal a gather, the scales K1 products (kept to time the
+        block route against)."""
+        if not self.block:
+            return self
+        if self._stages_twin is None:
+            self._stages_twin = self._variant(FR, cuda_field.ntt_stage, False)
+        return self._stages_twin
+
+    def _variant(self, field, stage, plain: bool) -> "Domain":
+        twin = object.__new__(Domain)  # not cached: Domain(exp) stays the block one
+        twin.__dict__.update(self.__dict__)
+        twin.F, twin.stage, twin.plain, twin.block = field, stage, plain, False
+        twin._twin = twin if plain else None
+        twin._stages_twin = twin
+        return twin
 
     def _sub(self, exp: int) -> "Domain":
         dom = Domain(exp)
-        return dom.as_plain() if self.plain else dom
+        if self.block:
+            return dom
+        return dom.as_plain() if self.plain else dom.as_stages()
 
     @staticmethod
-    def _powers(base: int, count: int) -> np.ndarray:
-        """(8, count) Montgomery words of base^0 .. base^(count-1), from
-        host integers."""
+    def _powers(base: int, count: int, const: int = 1) -> np.ndarray:
+        """(8, count) Montgomery words of const * base^0 .. base^(count-1),
+        from host integers."""
         ints = []
-        cur = 1
+        cur = const % R
         for _ in range(count):
             ints.append(cur)
             cur = cur * base % R
@@ -180,6 +224,103 @@ class Domain:
             t = torch.from_numpy(self._tables[name]).to(device)
             self._dev[key] = t
         return t
+
+    # ---- the card's route: ntt_block --------------------------------------------
+
+    def _stage_table(self, inverse: bool, device) -> torch.Tensor:
+        """(d, 8) element-major stage table of `ntt_block`: entry h + j is
+        omega^(+-j d / 2h), the twiddle of butterfly j at half-size h."""
+        name = f"stage_{'inv' if inverse else 'fwd'}"
+        if name not in self._tables:
+            half = self._tables.get("tw_inv" if inverse else "tw_fwd")
+            if half is None:  # a big domain (no dense tables) taken as one block
+                half = self._powers(self.omega_inv if inverse else self.omega, self.d // 2)
+            idx = [0]
+            h = 1
+            while h < self.d:
+                idx += [j * (self.d // (2 * h)) for j in range(h)]
+                h *= 2
+            self._tables[name] = np.ascontiguousarray(half[:, idx].T)
+        return self._table(name, device)
+
+    def _scale(self, name: str, device, kind: str, base: int, const: int = 1,
+               div: int = 1) -> cuda_field.NttScale:
+        """An `ntt_block` scale of const * base^e, e < d (kind "linear" or
+        "product"), from a dense table up to 2^_DENSE_SCALE_EXP entries and
+        split tables above; `const` alone for kind "const"."""
+        if kind == "const":
+            if name not in self._tables:
+                self._tables[name] = np.ascontiguousarray(FR.encode([const]).T)
+            return cuda_field.NttScale("const", self._table(name, device))
+        if self.exp <= _DENSE_SCALE_EXP:
+            if name not in self._tables:
+                self._tables[name] = np.ascontiguousarray(self._powers(base, self.d, const).T)
+            return cuda_field.NttScale(kind, self._table(name, device), div=div)
+        sc = self.exp // 2
+        if f"{name}_hi" not in self._tables:
+            self._tables[f"{name}_hi"] = np.ascontiguousarray(
+                self._powers(pow(base, 1 << sc, R), self.d >> sc, const).T)
+            self._tables[f"{name}_lo"] = np.ascontiguousarray(self._powers(base, 1 << sc).T)
+        return cuda_field.NttScale(kind, self._table(f"{name}_lo", device),
+                                   self._table(f"{name}_hi", device), sc, div)
+
+    def _block_split(self):
+        """(exp_r, exp_c) of the card's four-step: balanced, the second
+        pass's R the larger where d is an odd power (`bench.ntt`'s sweep,
+        H100: the fastest split at 2^15 and 2^20)."""
+        exp_r = (self.exp + 1) // 2
+        return exp_r, self.exp - exp_r
+
+    def _block_axis2(self, x, inverse: bool, pre=None, post=None):
+        """The transform along axis 2 of x (8, nb, d, bt) on `ntt_block`,
+        without the 1/d scale, x times `pre` before and the result times
+        `post` after (linear or const scales, e = row * bt + column).
+        One launch up to 2^BLOCK_MAX_EXP points; above it the four-step
+        with d = R C, j = j1 + R j2, k = k2 + C k1:
+
+            Y[k2, j1] = NTT_C over j2 of pre * x     (launch 1, columns
+                        (j1, c), times W[k2, j1] = omega^(j1 k2) on store)
+            X[k2 + C k1] = NTT_R over j1 of Y[k2, .] (launch 2: each row
+                        of Y is a contiguous transform; stored transposed,
+                        times post)
+        A pass above 2^BLOCK_MAX_EXP points recurses: its twiddle is then a
+        K1 product and the second pass's transpose a copy."""
+        if self.exp <= BLOCK_MAX_EXP:
+            return cuda_field.ntt_block(x, self._stage_table(inverse, x.device), pre, post)
+        W, nb, _, bt = x.shape
+        exp_r, exp_c = self._block_split()
+        rn, cn = 1 << exp_r, 1 << exp_c
+        sub_c, sub_r = Domain(exp_c), Domain(exp_r)
+        tw = self._scale(f"twiddle_{'inv' if inverse else 'fwd'}", x.device, "product",
+                         self.omega_inv if inverse else self.omega, div=bt)
+        x = x.reshape(W, nb, cn, rn * bt)  # [j2, (j1, c)]
+        if exp_c <= BLOCK_MAX_EXP:
+            y = sub_c._block_axis2(x, inverse, pre, tw)
+        else:
+            y = sub_c._block_axis2(x, inverse, pre)
+            y = self.F.mul(y, tw.values(cn, rn * bt, self.F.mul).unsqueeze(1))
+        if exp_r <= BLOCK_MAX_EXP:  # rows of Y in, [k1, (k2, c)] out
+            z = cuda_field.ntt_block(y.reshape(W, nb * cn, rn, bt),
+                                     sub_r._stage_table(inverse, x.device), None, post,
+                                     out_bt=cn * bt)
+        else:
+            yt = y.reshape(W, nb, cn, rn, bt).transpose(2, 3).contiguous()
+            z = sub_r._block_axis2(yt.reshape(W, nb, rn, cn * bt), inverse, None, post)
+        return z.reshape(W, nb, self.d, bt)
+
+    def _block_ntt(self, x, inverse: bool, coset: bool, bt: int = 1):
+        """A transform of (8, *lead, d, bt) (bt = 1: (8, *batch, d)) along
+        its axis -2 on the `ntt_block` route, the inverse scaled by 1/d,
+        coset ones with the powers of g fused."""
+        dev = x.device
+        pre = post = None
+        if coset and not inverse:
+            pre = self._scale("coset_fwd_scale", dev, "linear", self.gen)
+        if inverse:
+            post = (self._scale("coset_inv_scale", dev, "linear", self.gen_inv, self.d_inv)
+                    if coset else self._scale("dinv_scale", dev, "const", 0, self.d_inv))
+        x4 = x.reshape(FR.W, -1, self.d, bt)
+        return self._block_axis2(x4, inverse, pre, post).reshape(x.shape)
 
     # ---- four-step (Bailey) decomposition ----------------------------------
 
@@ -290,6 +431,8 @@ class Domain:
             if self.exp <= mxu._MAX_EXP:
                 return mxu.dft_axis2(self.exp, inverse, x, plain=self.plain)
             return self._four_step_axis2(x, inverse)
+        if self.block:
+            return self._block_ntt(x, inverse, False, bt=x.shape[-1])
         shape = x.shape
         bt = shape[-1]
         y = self._stages(x.reshape(FR.W, -1, self.d, bt), inverse).reshape(shape)
@@ -300,12 +443,27 @@ class Domain:
 
     # ---- core transform -----------------------------------------------------
 
-    def _ntt(self, x, inverse: bool):
-        """Pease constant-geometry DIF below the four-step gate: every stage
-        splits the array into halves, butterflies with twiddle
-        omega^(j & ~(2^s - 1)) at stage s, and interleaves."""
+    def _ntt(self, x, inverse: bool, coset: bool = False):
+        """The transform of (8, *batch, d) along its last axis, coset ones
+        (coset=True) times g^i before the forward and g^-i after the
+        inverse. The `ntt_block` route unless the domain is a stage-loop
+        twin (`as_plain`, `as_stages`) or the matmul-DFT path is on; there
+        the reference's route: Pease
+        constant-geometry DIF below the four-step gate (every stage splits
+        the array into halves, butterflies with twiddle
+        omega^(j & ~(2^s - 1)) at stage s, and interleaves), four-step at
+        and above it."""
         if self.d == 1:
             return x
+        if self.block and not mxu.mxu_available(x.device):
+            return self._block_ntt(x, inverse, coset)
+        if coset and not inverse:
+            x = self._mul_coset(x, inverse=False)
+        y = self._ntt_stages(x, inverse)
+        return self._mul_coset(y, inverse=True) if coset and inverse else y
+
+    def _ntt_stages(self, x, inverse: bool):
+        """The reference's route of `_ntt`: Pease or four-step, on K5 stages."""
         from ..config import get_config
 
         # config can lower the four-step gate (tests force it small) but
@@ -353,11 +511,11 @@ class Domain:
 
     def coset_ntt(self, coeffs):
         """Evaluate over the coset g*<omega> (ft.rs:158-166 semantics)."""
-        return self._ntt(self._mul_coset(coeffs, inverse=False), inverse=False)
+        return self._ntt(coeffs, inverse=False, coset=True)
 
     def coset_intt(self, evals):
         """Inverse of coset_ntt (ft.rs:168-178 semantics)."""
-        return self._mul_coset(self._ntt(evals, inverse=True), inverse=True)
+        return self._ntt(evals, inverse=True, coset=True)
 
     # ---- vanishing polynomial helpers (ft.rs:182-217 parity) -----------------
 

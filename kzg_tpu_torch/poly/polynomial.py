@@ -5,8 +5,9 @@ leading, coefficient index on the batch axis) with the degree tracked as a
 host int. Evaluation and linear division, XLA scans over the K1 kernel in
 the JAX package, run on the Horner kernel `fr_horner` (`poly/horner.py`), at any number of
 points.
-Multiplication is NTT-based at every size (`_mul_ntt`, kernel K5 in every
-butterfly stage); long division is a schoolbook loop for short quotients
+Multiplication is NTT-based at every size (`_mul_ntt`: both operands in
+one stacked forward transform and one inverse, each one `ntt_block`
+launch up to 2^12 points); long division is a schoolbook loop for short quotients
 and Newton-inverse division above `newton_div_threshold` (poly/newton.py).
 
 Not ported yet: the chunked linear division for the streamed witness
@@ -29,11 +30,15 @@ def _pad_to(c: torch.Tensor, n: int) -> torch.Tensor:
 
 def _mul_ntt(a: torch.Tensor, b: torch.Tensor, out_len: int) -> torch.Tensor:
     """Product of coefficient arrays via NTT (reference fft_mul semantics,
-    polynomial.rs:167-183), batched over any leading dims."""
+    polynomial.rs:167-183), batched over any leading dims. Operands of one
+    shape after padding go through one stacked forward transform."""
     exp = max(1, (out_len - 1).bit_length())
     dom = Domain(exp)
-    fa = dom.ntt(_pad_to(a, dom.d))
-    fb = dom.ntt(_pad_to(b, dom.d))
+    a, b = _pad_to(a, dom.d), _pad_to(b, dom.d)
+    if a.shape == b.shape:
+        fa, fb = dom.ntt(torch.stack([a, b], dim=1)).unbind(1)
+    else:
+        fa, fb = dom.ntt(a), dom.ntt(b)
     return dom.intt(FR.mul(fa, fb))[..., :out_len]
 
 

@@ -11,8 +11,10 @@ reverse, array, column, total and pair modes) and the Horner kernel
 `fr_horner` (division and remainder alone, a zero x, a carry in, no
 points and more than a launch holds), at ragged sizes and 2^15, and their
 refusals;
-the matmul-DFT NTT and
-device setup on the card; the default device; and no fallback when the
+K5's block entry `ntt_block` at the paths' shapes (every scale, the
+transposed store) and whole transforms on it (launches per transform, the
+four-step recursion at a lowered BLOCK_MAX_EXP, a second card where there
+is one), K6 (K7's narrow kernel at S = 1); the matmul-DFT NTT (neither K5 entry launched) and device setup on the card; the default device; and no fallback when the
 kernel build fails.
 
 Needs a CUDA device and nvcc; skips elsewhere. This file imports no JAX, so
@@ -196,6 +198,116 @@ def test_k5_domains(dev, monkeypatch):
         assert _equal(getattr(dom, name)(x), getattr(dom.as_plain(), name)(x))
 
 
+def _random_words(dev, seed, shape):
+    """(8, *shape) Fr words drawn on the card, 0, 1 and r - 1 first."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    low = torch.randint(-(1 << 31), 1 << 31, (7,) + shape, generator=g, device=dev,
+                        dtype=torch.int64)
+    top = torch.randint(0, R >> 224, (1,) + shape, generator=g, device=dev, dtype=torch.int64)
+    x = torch.cat([low, top]).to(torch.int32)
+    k = min(3, x[0].numel())
+    x.view(FR.W, -1)[:, :k] = torch.from_numpy(FR.encode([0, 1, R - 1][:k])).to(dev)
+    return x
+
+
+# (log2 m, nb, bt, out_bt, pre, post): the shapes the paths give ntt_block
+# (the subproduct trees' stacked levels, 2^12 whole, both four-step passes
+# of 2^15 and 2^20), with every scale the Domain fuses
+BLOCK_SHAPES = [
+    (2, 16, 1, 1, None, None), (3, 8, 1, 1, None, "const"), (5, 2, 1, 1, None, None),
+    (12, 1, 1, 1, None, "const"), (12, 1, 1, 1, "linear", None), (12, 1, 1, 1, None, "linear"),
+    (8, 1, 128, 128, "linear", "product"), (8, 1, 128, 128, None, "product"),
+    (7, 256, 1, 256, None, "linear"), (7, 256, 1, 256, None, "const"),
+    (10, 1, 1024, 1024, "linear", "product"), (10, 1024, 1, 1024, None, "linear"),
+]
+
+
+def _block_scale(top, kind, inverse):
+    dev = torch.device("cuda", 0)
+    if kind is None:
+        return None
+    if kind == "const":
+        return top._scale("dinv_scale", dev, "const", 0, top.d_inv)
+    if kind == "product":
+        return top._scale(f"twiddle_{'inv' if inverse else 'fwd'}", dev, "product",
+                          top.omega_inv if inverse else top.omega)
+    if inverse:
+        return top._scale("coset_inv_scale", dev, "linear", top.gen_inv, top.d_inv)
+    return top._scale("coset_fwd_scale", dev, "linear", top.gen)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("case", range(len(BLOCK_SHAPES)))
+def test_ntt_block_at_path_shapes(dev, case, inverse):
+    """ntt_block against its twin word for word at the paths' shapes, with
+    the coset, 1/d and twiddle scales, nb > 1 and the transposed store;
+    also at one column and 128 threads a block."""
+    log_m, nb, bt, out_bt, pre, post = BLOCK_SHAPES[case]
+    m = 1 << log_m
+    top = Domain(log_m + max(bt, out_bt).bit_length() - 1)
+    x = _random_words(dev, 60 + case, (nb, m, bt))
+    tw = Domain(log_m)._stage_table(inverse, dev)
+    args = (x, tw, _block_scale(top, pre, inverse), _block_scale(top, post, inverse), out_bt)
+    want = cuda_field.ntt_block_plain(*args)
+    kernels.reset_launches()
+    assert _equal(cuda_field.ntt_block(*args), want)
+    assert _equal(cuda_field.ntt_block(*args, cols=1, threads=128), want)
+    assert kernels.launch_counts()["ntt_block"] == 2
+
+
+@pytest.mark.parametrize("exp", [0, 1, 12, 15, 20])
+def test_ntt_block_domains(dev, exp):
+    """Whole transforms on the ntt_block route equal the stage loop (and the
+    plain domain up to 2^15) word for word, in at most one launch up to
+    2^BLOCK_MAX_EXP points and three above, none of them a K5 stage."""
+    from kzg_tpu_torch.ntt import domain as ntt_domain
+
+    dom = Domain(exp)
+    x = _random_words(dev, 70 + exp, (2, dom.d) if exp <= 12 else (dom.d,))
+    for name in ("ntt", "intt", "coset_ntt", "coset_intt"):
+        kernels.reset_launches()
+        got = getattr(dom, name)(x)
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        assert sum(counts.values()) == counts.get("ntt_block", 0) <= (
+            1 if exp <= ntt_domain.BLOCK_MAX_EXP else 3), (name, counts)
+        assert _equal(got, getattr(dom.as_stages(), name)(x))
+        if exp <= 15:
+            assert _equal(got, getattr(dom.as_plain(), name)(x))
+
+
+def test_ntt_block_on_a_second_card(dev):
+    """ntt_block with tiles above 48 KB of shared memory (a 2^12 transform,
+    the 2^10 passes two columns a tile) on card 0 and then on card 1: the
+    larger limit is allowed on each card the process launches on."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second CUDA device")
+    for index in (0, 1):
+        d = torch.device("cuda", index)
+        with torch.cuda.device(d):
+            for exp, shape, cols in ((12, (1, 1 << 12, 1), None), (10, (8, 1 << 10, 1), 2)):
+                x = _fr_words(d, 40 + exp, shape)
+                tw = Domain(exp)._stage_table(False, d)
+                got = cuda_field.ntt_block(x, tw, cols=cols)
+                assert got.device == d
+                assert torch.equal(got, cuda_field.ntt_block_plain(x, tw)), (index, exp)
+
+
+def test_ntt_block_recursion(dev, monkeypatch):
+    """The four-step composition and its recursion (BLOCK_MAX_EXP lowered
+    to 3) along axis 2 with a batch axis, against the plain domain."""
+    from kzg_tpu_torch.ntt import domain as ntt_domain
+
+    monkeypatch.setattr(ntt_domain, "BLOCK_MAX_EXP", 3)
+    for exp in (5, 7, 9):
+        dom = Domain(exp)
+        x = _random_words(dev, 80 + exp, (2, dom.d))
+        for name in ("ntt", "intt", "coset_ntt", "coset_intt"):
+            assert _equal(getattr(dom, name)(x), getattr(dom.as_plain(), name)(x))
+        x3 = _random_words(dev, 90 + exp, (dom.d, 3))
+        for inverse in (False, True):
+            assert _equal(dom._ntt_axis2(x3, inverse), dom.as_plain()._ntt_axis2(x3, inverse))
+
+
 def _g2_points(dev, n, seed):
     """Jacobian G2 points k_i * G (12-bit k_i) built with the plain twins."""
     rs = np.random.default_rng(seed)
@@ -240,6 +352,27 @@ def test_k6_madd_and_digit_ladder(dev, group):
     a = curve.scalar_mul_digits(p, digits, 3)
     b = plain.scalar_mul_digits(p, digits, 3)
     assert bool(curve.eq(a, b).all())
+
+
+@pytest.mark.parametrize("where", ["1", "3", "200", "wave", "4 waves"])
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_k6_narrow_kernel(dev, group, where):
+    """K6 (K7's narrow kernel at S = 1) against its twin on
+    `bench.madd_multi`'s planted lanes, one to four waves of the kernel;
+    counted as K6, not K7."""
+    g = cuda_ops._G1K if group == "g1" else cuda_ops._G2K
+    kfn, pfn = ((cuda_ops.madd, cuda_ops.madd_plain) if group == "g1"
+                else (cuda_ops.g2_madd, cuda_ops.g2_madd_plain))
+    wave = 2 * cuda_ops.narrow_min_blocks(g.ncomp) * (
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    lanes = {"wave": wave, "4 waves": 4 * wave}.get(where) or int(where)
+    acc, q, skip, _ = mmbench.random_steps(group, lanes, 1,
+                                           torch.Generator(device=dev).manual_seed(lanes))
+    args = (acc, tuple(t.select(-2, 0) for t in q), skip[0])
+    kernels.reset_launches()
+    assert _equal(kfn(*args), pfn(*args))
+    counts = kernels.launch_counts()
+    assert counts[f"{group}_madd"] == 1 and counts[f"{group}_madd_multi"] == 0
 
 
 @pytest.mark.parametrize("group", ["g1", "g2"])
@@ -650,7 +783,7 @@ def test_mxu_ntt_equals_butterfly_ntt(dev, monkeypatch):
         got = [getattr(dom, name)(x) for name in ("ntt", "intt", "coset_ntt", "coset_intt")]
         counts = kernels.launch_counts()
         assert all(_equal(a, b) for a, b in zip(got, want)), exp
-        assert counts["mxu_reduce"] > 0 and counts["ntt_stage"] == 0
+        assert counts["mxu_reduce"] > 0 and counts["ntt_stage"] == 0 and counts["ntt_block"] == 0
 
 
 def test_setup_device_on_the_card(dev, monkeypatch):
@@ -694,6 +827,8 @@ def test_no_fallback_when_the_build_fails(dev, monkeypatch):
     p = tuple(t.to(dev) for t in g2_generator_device(4))
     with pytest.raises(kernels.KernelError):
         cuda_field.ntt_stage(x, x[:, 0, :4, 0], 0)
+    with pytest.raises(kernels.KernelError):
+        cuda_field.ntt_block(x, Domain(3)._stage_table(False, dev))
     with pytest.raises(kernels.KernelError):
         cuda_ops.g2_add(p, p)
     with pytest.raises(kernels.KernelError):

@@ -19,6 +19,9 @@ its twin, the JAX package and the oracle; and the rule that picks the mode.
   * `width_mode` at K7's crossover in `cuda_ops.NARROW_WAVES` +- 1 lane for
     both groups, the registry's K7 records counted by mode, an unknown mode
     refused, and masks handed to the kernel at 4-byte aligned addresses.
+  * K6 (`madd` / `g2_madd`), which runs K7's narrow kernel at S = 1: its
+    twin against the JAX package's madd (G2 `slow`) and its registry
+    record.
 
 Tolerance 0: all of it is exact integer arithmetic. The kernels themselves
 run on the card in `tests/test_torch_cuda.py`.
@@ -232,6 +235,43 @@ def test_k7_mode_at_the_crossover(monkeypatch, group):
     for n, mode in ((1, "narrow"), (top - 1, "narrow"), (top, "narrow"), (top + 1, "wide"),
                     (1 << 20, "wide")):
         assert cuda_ops.width_mode(g, "madd_multi", n, dev) == mode
+
+
+@pytest.mark.parametrize("group", ["g1", pytest.param("g2", marks=pytest.mark.slow)])
+def test_k6_twin_matches_jax(group):
+    """K6 (`madd` / `g2_madd`, K7's narrow kernel at S = 1) on CPU
+    tensors, its twin, against the JAX package's madd on the edge-case
+    lanes of one step, word for word."""
+    _, _, ncomp = GROUPS[group]
+    fn = cuda_ops.madd if group == "g1" else cuda_ops.g2_madd
+    rs = np.random.default_rng([13, ncomp])
+    acc, q, skip, _, _, _ = curve_steps(group, "edges", 1, rs)
+    q = tuple(t.select(-2, 0) for t in q)
+    ops = PallasCurveOps(jcurve.FPA if group == "g1" else jcurve.FP2A, name=group)
+    ops._kernels = None  # the group law it runs where no Pallas kernel applies
+    want = ops.madd(tuple(_jax(t) for t in acc), tuple(_jax(t) for t in q),
+                    jnp.asarray(skip[0].numpy()))
+    for a, b in zip(fn(acc, q, skip[0]), want):
+        np.testing.assert_array_equal(unpack16(a).numpy().astype(np.uint32), np.asarray(b))
+
+
+def test_k6_record():
+    """K6 has one registry record a group, without modes: it runs K7's
+    narrow entry at S = 1 (no entry of its own) and counts apart."""
+    for name in ("g1_madd", "g2_madd"):
+        k = kernels.REGISTRY[name]
+        assert not k.modes and k.source.endswith("csrc/madd_multi.cuh")
+        assert f"kzg_{name}_multi_narrow" in kernels._SIGNATURES
+        assert f"kzg_{name}" not in kernels._SIGNATURES
+        assert name not in cuda_ops.NARROW_WAVES
+    k = kernels.REGISTRY["g2_madd"]
+    try:
+        k.count()
+        assert kernels.launch_counts()["g2_madd"] == 1
+        assert kernels.launch_counts()["g2_madd_multi"] == 0
+        assert "g2_madd" not in kernels.mode_counts()
+    finally:
+        kernels.reset_launches()
 
 
 def test_unknown_mode_raises():
