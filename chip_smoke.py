@@ -157,7 +157,39 @@ non-zero before the result line:
                 trees' small stacked transforms, 2^12, both four-step passes
                 at 2^15 and 2^20), replayed on random words with 0, 1 and
                 r - 1 planted against the twin word for word, each timed
-                with its bound.
+                with its bound;
+ 23. 2^24     - `setup_device(s, 2^24, g2_count=2)` (powers 0, 1, 2^23 and
+                2^24 - 1 against the native engine), commit (median of 3,
+                equal to f(s) G: f(s) and y = f(x) by Horner over Python
+                ints on the host), witness (median of 3) equal to the
+                witness streamed at the JAX package's chunk logs (22 and 20:
+                one `fr_horner` call and one MSM a chunk of 2^20) and to the
+                one-shot witness (both chunk logs 24), verify on
+                the host and on the device engine (median of 3 each), a
+                tampered y rejected by both. Then, after the count: every
+                K3, K4 and fr_horner call of the default commit and witness,
+                recorded by shape, replayed against its twin word for word
+                (K3 on 2^24 points, c = 16: a sample of its sub-runs, every
+                window's first and last among them; K4 at W = 16, c = 16;
+                fr_horner on the 2^22-coefficient chunks, carry 0 and a
+                carry in), each timed with its bound; and, for each chunk
+                setting of CHUNK_SWEEP, setup seconds and peak memory (equal
+                SRS), commit and witness seconds (median of 3), points/s and
+                the peak device memory above the resident SRS and f;
+ 24. pairing  - `pairing_device` on two random pairs equal to the oracle's
+                pairing; the device engine against the host engine on phase
+                5's 2^15 single proof, phase 8's batched proof and phase
+                13's evaluation-form proofs (`verify_eval`, and
+                `verify_eval_all`, whose true claim puts both G1 points at
+                infinity): the same verdicts on the true
+                and a tampered claim, each engine's wall (median of 3) and
+                launches by kernel a verify, the device verify's device
+                time by kernel (`torch.profiler`) and idle share;
+ 25. counts   - launch counts of phase 23 and of phase 24 (each reset just
+                before it): K1, field_pow, field_scan, fr_horner, K2 (G1 and
+                G2 add and dbl), K3 and K4 > 0 on the 2^24 path; K1,
+                field_pow, field_scan and K2 on the device verifies;
+                ntt_stage 0 on both.
 K3 and K7 run over sub-runs of at most L points of each bucket's run
 (`msm.pippenger.split_runs`); each phase that runs them prints L, the
 number of sub-runs, the longest one, the most sub-runs of one bucket and,
@@ -169,7 +201,7 @@ idle share) and the table written to JSON (default
 build/profile_eval.json).
 Every counted run prints K2's and K7's launches by mode, and requires K7
 launches in the mode its rule picks at the path's shape. The last lines are the
-kernel report (launches summed over the five counted runs; K2 has a row a
+kernel report (launches summed over the seven counted runs; K2 has a row a
 mode, `g1_add_narrow`, `g1_add_wide` and so on, each with its launches in
 that mode, its times at 2^12 points (narrow) or 2^20 (wide), every width
 it was held and timed at, `chain_ms` (the narrow mode's critical path of
@@ -219,6 +251,7 @@ import random
 import subprocess
 import sys
 import time
+import types
 
 import torch
 
@@ -230,6 +263,11 @@ K_BATCH = 16
 EXP_COSET = 20
 EXP_EVAL = 12  # one EIP-4844 blob: 4096 evaluations
 EXP_LAGRANGE = 15  # the ceremony's largest transcript
+EXP_BIG = 24  # the north star: commit + witness of a 2^24-coefficient polynomial
+# the chunk settings phase 23 times at 2^EXP_BIG (EXP_BIG: one shot)
+CHUNK_SWEEP = {"msm_chunk_log": (22, 23, 24), "div_chunk_log": (20, 22)}
+# the JAX package's defaults, under which the 2^EXP_BIG witness streams
+STREAM_CHUNKS = {"msm_chunk_log": 22, "div_chunk_log": 20}
 
 HBM_BYTES_PER_S = 3.35e12
 INT_MADS_PER_S = 67e12 / 4  # see the module docstring
@@ -404,6 +442,29 @@ def max_abs_diff(a, b):
     )
 
 
+def device_ms(fn):
+    """(busy ms, the eight largest (kernel, ms)) of one call of fn:
+    `torch.profiler` self device time of the device-side events (one
+    stream, so kernels never overlap and the sum is the busy time). Only
+    the CUDA activity is traced: the host-side operator events would repeat
+    the kernels' time, and on a device verify's chain of ~20,000 launches
+    recording them took most of the pairing phase's time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if us > 0 and evt.device_type == DeviceType.CUDA:
+            by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + us / 1e3
+    return sum(by_kernel.values()), sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+
+
 def profile_phases(phases, card, out_path):
     """For each (name, fn): the wall time (host clock closed by a
     synchronize, median of 3 after a warm-up call), the port's launches in
@@ -411,10 +472,8 @@ def profile_phases(phases, card, out_path):
     of one more call; only device-side events, the host-side operator
     events repeat the time of the kernels they launch) and the device's
     idle share, 1 - busy / wall (one stream, so kernels never overlap and
-    the sum is the busy time). Printed, and written to out_path as JSON."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    the sum is the busy time). Printed, and written to out_path as JSON.
+    The launch counts are read before and after, never reset."""
     from kzg_tpu_torch import kernels
 
     results = []
@@ -428,22 +487,12 @@ def profile_phases(phases, card, out_path):
             torch.cuda.synchronize()
             runs.append(time.perf_counter() - t0)
         wall = sorted(runs)[1]
-        kernels.reset_launches()
+        torch.cuda.synchronize()
+        before = kernels.launch_counts()
         fn()
         torch.cuda.synchronize()
-        launches = {k: v for k, v in kernels.launch_counts().items() if v}
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        by_kernel = {}
-        for evt in prof.key_averages():
-            us = getattr(evt, "self_device_time_total", None)
-            if us is None:
-                us = evt.self_cuda_time_total
-            if us > 0 and evt.device_type == DeviceType.CUDA:
-                by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + us / 1e3
-        busy = sum(by_kernel.values())
-        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+        launches = {k: v - before[k] for k, v in kernels.launch_counts().items() if v != before[k]}
+        busy, top = device_ms(fn)
         idle = max(0.0, 1.0 - busy / (wall * 1e3))
         log(f"[profile {name}] wall {wall * 1e3:.2f} ms "
             f"(runs {', '.join(f'{t * 1e3:.2f}' for t in runs)}), device busy {busy:.2f} ms, "
@@ -478,9 +527,11 @@ def main(argv=None) -> int:
     from kzg_tpu_torch.bench import mul_peak, peaks
     from kzg_tpu_torch.bench import pointwise as pwbench
     from kzg_tpu_torch.curve import horner_schedule
-    from kzg_tpu_torch.config import configure, get_config
+    from kzg_tpu_torch.config import configure, get_config, set_config
     from kzg_tpu_torch.constants import P, R
-    from kzg_tpu_torch.curve import G1, G2, cuda_ops, g1_from_device, g2_from_device
+    from kzg_tpu_torch.curve import (
+        G1, G2, cuda_ops, g1_from_device, g1_to_device, g2_from_device, g2_to_device,
+    )
     from kzg_tpu_torch.fields import FP, FR
     from kzg_tpu_torch.fields import cuda_field
     from kzg_tpu_torch.kzg.coeff_form import (
@@ -494,7 +545,9 @@ def main(argv=None) -> int:
     from kzg_tpu_torch.msm import msm_g1, msm_g2, pippenger
     from kzg_tpu_torch.ntt import Domain, mxu
     from kzg_tpu_torch.ntt import domain as ntt_domain
-    from kzg_tpu_torch.oracle import ec_add, ec_neg, g1_generator
+    from kzg_tpu_torch.oracle import ec_add, ec_neg, g1_generator, g2_generator
+    from kzg_tpu_torch.oracle import pairing as oracle_pairing
+    from kzg_tpu_torch.pairing import pairing_device, tower
     from kzg_tpu_torch.poly import Polynomial, lagrange_interpolation, vanishing_poly
     from kzg_tpu_torch.poly import horner as horner_mod
     from kzg_tpu_torch.poly import polynomial as poly_mod
@@ -1558,6 +1611,7 @@ def main(argv=None) -> int:
                       points_per_s=N_MAIN / commit_s, witness_2e15_k1_launches=k1_w,
                       witness_2e15_fr_horner_launches=hor_w)
         witness15 = (prover, poly, x, y)  # profiled by phase with --profile
+        single15 = (params, commitment, witness, x, y)  # verified again on the device (24)
 
     # ---- 6. launch counts of the single-opening path ---------------------------------------------
     with phase("launch counts 4-5"):
@@ -1631,6 +1685,7 @@ def main(argv=None) -> int:
         log(f"  batched 2^15, k = {K_BATCH}: witness {bwitness_s:.4f} s "
             f"(runs {', '.join(f'{t:.4f}' for t in times)}), verify {bverify_s:.4f} s [{card}]")
         report.update(batched_witness_s=bwitness_s, batched_verify_s=bverify_s)
+        batched15 = (commitment, bw, list(xs))  # verified again on the device (24)
         batched_verify = (lambda v=verifier, c=commitment, w=bw, x=list(xs):
                           v.verify_eval_batched(c, w, x))  # profiled with --profile
 
@@ -1826,6 +1881,8 @@ def main(argv=None) -> int:
             f"witness {ewitness_s:.4f} s (runs {', '.join(f'{t:.4f}' for t in wtimes)}); "
             f"verify_eval {everify_s:.4f} s; verify_poly {vpoly_s:.4f} s; "
             f"verify_eval_all {vall_s:.4f} s [{card}]")
+        # verified on the device engine in phase 24
+        eval12 = (lag, commitment, witness, index, evals[index], bw, tampered)
         report.update(lagrange_g1_s=group_s["G1"], lagrange_g2_s=group_s["G2"],
                       eval_commit_s=ecommit_s, eval_witness_s=ewitness_s,
                       eval_verify_s=everify_s, eval_verify_poly_s=vpoly_s,
@@ -2097,11 +2154,6 @@ def main(argv=None) -> int:
             check(counts_lag[k] > 0, f"{k} launched {counts_lag[k]} times on the trusted "
                   f"Lagrange SRS at 2^{EXP_LAGRANGE}")
         check(counts_lag["ntt_stage"] == 0, "no per-stage K5 launch on the Lagrange SRS")
-        counts = {k: counts_single[k] + counts_batched[k] + counts_eval[k] + counts_big[k]
-                  + counts_lag[k] for k in counts_eval}
-        mode_totals = {k: {m: sum(run[k][m] for run in (modes_single, modes_batched, modes_eval,
-                                                         modes_big, modes_lag))
-                           for m in cuda_ops.MODES} for k in modes_eval}
 
     # ---- 22. ntt_block at every shape the paths launched it, against its twin ------------------
     cuda_field.ntt_block = launch_block
@@ -2141,6 +2193,320 @@ def main(argv=None) -> int:
             max_abs_err=max([kinfo["ntt_block"]["max_abs_err"]] + [r["max_abs_err"] for r in shapes]),
             ms=ref["ms"], plain_ms=ref["plain_ms"], bound=(ref["bound_ms"], ref["bound_by"]),
             shapes=shapes)
+
+    # ---- 23. setup -> commit -> witness -> verify at 2^24, counted ---------------------------
+    kernels.reset_launches()
+    # the K3, K4 and fr_horner calls of the default commit and witness,
+    # recorded by shape (fr_horner: the first and the latest call of a
+    # shape, so a carry of 0 and a carry from the chunk above) and replayed
+    # against their twins after the count
+    big_calls = {"g1_bucket_accumulate": {}, "g1_horner_join": {}, "fr_horner": {}}
+    launch_runs, launch_join, launch_horner = (cuda_ops.bucket_runs, cuda_ops.horner_join,
+                                               poly_mod.fr_horner)
+
+    def record_runs(rows, order, pos, length):
+        big_calls["g1_bucket_accumulate"].setdefault(
+            (tuple(order.shape), pos.numel()), (rows, order, pos, length))
+        return launch_runs(rows, order, pos, length)
+
+    def record_join(s_all, c):
+        big_calls["g1_horner_join"].setdefault((tuple(s_all[0].shape), c), (s_all, c))
+        return launch_join(s_all, c)
+
+    def record_horner(f, x, carry=None, rem_only=False):
+        seen = big_calls["fr_horner"].setdefault(
+            (tuple(f.shape), x.shape[-1], carry is not None, rem_only), [])
+        seen[min(len(seen), 1):] = [(f, x, carry, rem_only)]
+        return launch_horner(f, x, carry, rem_only)
+
+    with phase(f"main path 2^{EXP_BIG}"):
+        n24 = 1 << EXP_BIG
+        cfg0 = get_config()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        big24 = setup_device(SEED, n24, g2_count=2, device=dev)
+        torch.cuda.synchronize()
+        setup24_s = time.perf_counter() - t0
+        check(big24.gs[0].shape[-1] == n24 and big24.hs[0].shape[-1] == 2,
+              f"setup_device(s, 2^{EXP_BIG}, g2_count=2): 2^{EXP_BIG} G1 powers, 2 G2 powers")
+        spots24 = [0, 1, n24 // 2, n24 - 1]
+        check(g1_from_device(tuple(t[..., spots24] for t in big24.gs))
+              == [native.g1_mul(g1_generator(), pow(SEED, i, R)) for i in spots24],
+              f"powers 0, 1, 2^{EXP_BIG - 1} and 2^{EXP_BIG} - 1 equal native.g1_mul(g, s^i)")
+        gen24 = torch.Generator(device=dev).manual_seed(SEED + 24)
+        poly24 = Polynomial(random_fr_words(gen24, (n24,), dev))
+        x24 = rng.randrange(R)
+        # f(s) and y = f(x) on the host, one pass of Horner over Python ints
+        t0 = time.perf_counter()
+        coeffs = poly24.to_ints()
+        to_ints_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fs = y24 = 0
+        for k in reversed(coeffs):
+            fs = (fs * SEED + k) % R
+            y24 = (y24 * x24 + k) % R
+        host_horner_s = time.perf_counter() - t0
+        del coeffs
+        prover24 = KZGProver(big24)
+        cuda_ops.bucket_runs, cuda_ops.horner_join = record_runs, record_join
+        poly_mod.fr_horner = record_horner
+        c24, commit24_s, ctimes = median3(lambda: prover24.commit(poly24))
+        w24, witness24_s, wtimes = median3(
+            lambda: prover24.create_witness(poly24, (x24, y24), check=False))
+        cuda_ops.bucket_runs, cuda_ops.horner_join = launch_runs, launch_join
+        poly_mod.fr_horner = launch_horner
+        check(g1_from_device(tuple(t[..., None] for t in c24))[0]
+              == native.g1_mul(g1_generator(), fs), f"2^{EXP_BIG} commitment equals f(s) G")
+        configure(**STREAM_CHUNKS)
+        streamed = prover24.create_witness(poly24, (x24, y24), check=False)
+        configure(msm_chunk_log=EXP_BIG, div_chunk_log=EXP_BIG)
+        one_shot = prover24.create_witness(poly24, (x24, y24), check=False)
+        set_config(cfg0)
+        check(bool(G1.eq(streamed, one_shot)) and bool(G1.eq(w24, one_shot)),
+              f"the 2^{EXP_BIG} witness streamed in chunks of "
+              f"2^{min(STREAM_CHUNKS.values())} ({STREAM_CHUNKS}) equals the one-shot witness "
+              f"(both chunk logs {EXP_BIG}) and the default one (msm_chunk_log "
+              f"{cfg0.msm_chunk_log}, div_chunk_log {cfg0.div_chunk_log})")
+        del streamed, one_shot
+        verify24 = {}
+        for engine in ("host", "device"):
+            v24 = KZGVerifier(big24, engine=engine)
+            ok, verify24[engine], vtimes = median3(
+                lambda: v24.verify_eval((x24, y24), c24, w24))
+            check(ok, f"2^{EXP_BIG} verify_eval accepts on the {engine} engine")
+            check(not v24.verify_eval((x24, (y24 + 1) % R), c24, w24),
+                  f"2^{EXP_BIG} verify_eval rejects a tampered y on the {engine} engine")
+        log(f"  2^{EXP_BIG}: setup_device {setup24_s:.4f} s; commit {commit24_s:.4f} s (runs "
+            f"{', '.join(f'{t:.4f}' for t in ctimes)}), {n24 / commit24_s:.0f} points/s; witness "
+            f"{witness24_s:.4f} s (runs {', '.join(f'{t:.4f}' for t in wtimes)}); verify host "
+            f"{verify24['host']:.4f} s, device {verify24['device']:.4f} s; host to_ints "
+            f"{to_ints_s:.2f} s, Horner at two points {host_horner_s:.2f} s [{card}]")
+        report.update(setup_device_2e24_s=setup24_s, commit_2e24_s=commit24_s,
+                      points_per_s_2e24=n24 / commit24_s, witness_2e24_s=witness24_s,
+                      verify_2e24_host_s=verify24["host"],
+                      verify_2e24_device_s=verify24["device"])
+        del c24, w24
+        counts_big24, modes_big24 = kernels.launch_counts(), kernels.mode_counts()
+
+    # K3, K4 and fr_horner as the default 2^24 commit and witness launched
+    # them, each against its twin word for word (launches not counted)
+    with phase(f"K3, K4 and fr_horner at the 2^{EXP_BIG} shapes"):
+        gen_s = torch.Generator(device=dev).manual_seed(SEED + 23)
+        for (oshape, m), (rows, order, pos, length) in sorted(
+                big_calls["g1_bucket_accumulate"].items()):
+            windows, n = oshape
+            got = launch_runs(rows, order, pos, length)
+            # the twin on a sample of the sub-runs (it advances all its lanes
+            # one point a step, a chain of launches whatever the width): each
+            # window's first and last sub-run by position, the longest, and
+            # 2,048 drawn from all of them
+            pos64 = pos.to(torch.int64)
+            win = pos64 // n
+            ends = [i for w in range(windows) for i in (
+                torch.where(win == w, pos64, 1 << 62).argmin(),
+                torch.where(win == w, pos64, -1).argmax())]
+            idx = torch.unique(torch.cat([
+                torch.stack(ends), torch.zeros(1, dtype=torch.int64, device=dev),
+                torch.randint(0, m, (2048,), generator=gen_s, device=dev)]))
+            want, plain_ms = once_ms(lambda: cuda_ops.bucket_runs_plain(
+                rows, order, pos[idx], length[idx]))
+            err = max_abs_diff(tuple(t[..., idx] for t in got), want)
+            last = int((pos64[idx] + length[idx]).max()) - 1
+            check(err == 0, f"K3 at the 2^{EXP_BIG} MSM's shape (order {oshape}, {m} sub-runs): "
+                  f"{idx.numel()} sub-runs, every window's first and last (positions up to "
+                  f"{last}), equal their twin")
+            b = runs_bound(0, rows, order, types.SimpleNamespace(pos=pos, length=length),
+                           3 * 12 * m)
+            row = {"shape": [windows, n], "sub_runs": m, "longest": int(length.max()),
+                   "checked": idx.numel(), "last_position": last,
+                   "ms": cuda_ms(lambda: launch_runs(rows, order, pos, length), 3),
+                   "plain_ms_sample": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+                   "max_abs_err": err}
+            kinfo["g1_bucket_accumulate"].setdefault("shapes", []).append(row)
+            kinfo["g1_bucket_accumulate"]["max_abs_err"] = max(
+                kinfo["g1_bucket_accumulate"]["max_abs_err"], err)
+            log(f"  K3 W = {windows}, n = {n}: {m} sub-runs, longest {row['longest']}; kernel "
+                f"{row['ms']:.4f} ms, bound {b[0]:.6f} ms ({b[1]}); the twin on {idx.numel()} "
+                f"sub-runs {plain_ms:.2f} ms [{card}]")
+            del got, want
+        for (sshape, _), (s_all, c) in sorted(big_calls["g1_horner_join"].items()):
+            want, plain_ms = once_ms(lambda: cuda_ops.horner_join_plain(s_all, c))
+            err = max_abs_diff(launch_join(s_all, c), want)
+            check(err == 0, f"K4 at the 2^{EXP_BIG} MSM's shape (W = {sshape[-1]}, c = {c}) "
+                  "equals its twin")
+            b = horner_bound(0, sshape[-1], c)
+            row = {"windows": sshape[-1], "c": c, "ms": cuda_ms(lambda: launch_join(s_all, c), 5),
+                   "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1], "max_abs_err": err}
+            kinfo["g1_horner_join"].setdefault("shapes", []).append(row)
+            kinfo["g1_horner_join"]["max_abs_err"] = max(kinfo["g1_horner_join"]["max_abs_err"],
+                                                          err)
+            log(f"  K4 W = {sshape[-1]}, c = {c}: kernel {row['ms']:.4f} ms, twin "
+                f"{plain_ms:.2f} ms, bound {b[0]:.6f} ms ({b[1]}) [{card}]")
+        for (fshape, k, has_carry, _), seen in sorted(big_calls["fr_horner"].items()):
+            n = fshape[-1]
+            for which, (f, x, carry, rem_only) in zip(("first", "latest"), seen):
+                got = launch_horner(f, x, carry, rem_only)
+                want, plain_ms = once_ms(
+                    lambda: horner_mod.fr_horner_plain(f, x, carry, rem_only))
+                err = max(max_abs_diff(g, w) for g, w in zip(got, want) if g is not None)
+                carry_zero = has_carry and not bool(carry.any())
+                what = (f"division 2^{EXP_BIG}, {which} chunk of {n} (carry "
+                        f"{'none' if not has_carry else '0' if carry_zero else 'in'})")
+                check(err == 0, f"fr_horner {what} equals its twin")
+                b = bound(32 * (n + (0 if rem_only else k * (n - 1)) + 2 * k),
+                          k * n * (FR_MUL_MADS + 16))
+                kinfo["fr_horner"]["shapes"][what] = {
+                    "ms": cuda_ms(lambda: launch_horner(f, x, carry, rem_only), 5),
+                    "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+                    "max_abs_err": err}
+                kinfo["fr_horner"]["max_abs_err"] = max(kinfo["fr_horner"]["max_abs_err"], err)
+                log(f"  fr_horner {what}: kernel {kinfo['fr_horner']['shapes'][what]['ms']:.4f} "
+                    f"ms, twin {plain_ms:.2f} ms, bound {b[0]:.6f} ms ({b[1]}) [{card}]")
+                del got, want
+        check(all(big_calls.values()), f"the default 2^{EXP_BIG} commit and witness launched "
+              f"K3, K4 and fr_horner ({ {k: len(v) for k, v in big_calls.items()} } shapes)")
+        del big_calls, rows, order, pos, length, pos64, win, idx, s_all, seen, f, x, carry
+
+    # the chunk settings at 2^24, not counted: setup, commit and witness
+    # seconds (median of 3) and peak device memory (setup: above what was
+    # allocated before it, the SRS it returns included; commit and
+    # witness: above the resident SRS and f)
+    with phase(f"chunk settings at 2^{EXP_BIG}"):
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        sweep, setup_sweep = [], []
+
+        def peak_mib(fn, base):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+        for msm_log in CHUNK_SWEEP["msm_chunk_log"]:
+            configure(msm_chunk_log=msm_log)
+
+            def setup24():
+                return setup_device(SEED, n24, g2_count=2, device=dev)
+
+            srs, s_s, s_t = median3(setup24)
+            check(all(torch.equal(a, b) for a, b in zip(srs.gs + srs.hs, big24.gs + big24.hs)),
+                  f"setup_device at msm_chunk_log {msm_log} equals the default's SRS")
+            del srs
+            s_peak = peak_mib(setup24, resident)
+            setup_sweep.append({"msm_chunk_log": msm_log, "setup_s": s_s, "setup_runs": s_t,
+                                "setup_peak_mib": s_peak})
+            log(f"  setup_device 2^{EXP_BIG} at msm_chunk_log {msm_log}: {s_s:.4f} s (runs "
+                f"{', '.join(f'{t:.4f}' for t in s_t)}), peak {s_peak:.1f} MiB above the "
+                f"{resident / 2**20:.1f} MiB allocated before it [{card}]")
+            _, c_s, c_t = median3(lambda: prover24.commit(poly24))
+            c_peak = peak_mib(lambda: prover24.commit(poly24), resident)
+            for div_log in CHUNK_SWEEP["div_chunk_log"]:
+                configure(div_chunk_log=div_log)
+
+                def witness24():
+                    return prover24.create_witness(poly24, (x24, y24), check=False)
+
+                _, w_s, w_t = median3(witness24)
+                w_peak = peak_mib(witness24, resident)
+                sweep.append({"msm_chunk_log": msm_log, "div_chunk_log": div_log,
+                              "commit_s": c_s, "commit_runs": c_t,
+                              "points_per_s": n24 / c_s, "commit_peak_mib": c_peak,
+                              "witness_s": w_s, "witness_runs": w_t, "witness_peak_mib": w_peak})
+                log(f"  chunks msm 2^{msm_log}, div 2^{div_log}: commit {c_s:.4f} s (runs "
+                    f"{', '.join(f'{t:.4f}' for t in c_t)}), {n24 / c_s:.0f} points/s, peak "
+                    f"{c_peak:.1f} MiB; witness {w_s:.4f} s (runs "
+                    f"{', '.join(f'{t:.4f}' for t in w_t)}), peak {w_peak:.1f} MiB above the "
+                    f"resident {resident / 2**20:.1f} MiB [{card}]")
+            set_config(cfg0)
+        report.update(chunk_sweep_2e24=sweep, setup_sweep_2e24=setup_sweep,
+                      resident_2e24_mib=resident / 2**20)
+        del big24, prover24, poly24
+
+    # ---- 24. the device pairing engine against the host engine, counted ------------------------
+    kernels.reset_launches()
+
+    with phase("device pairing"):
+        # pairing_device on two random pairs against the oracle's pairing
+        ps = [native.g1_mul(g1_generator(), rng.randrange(1, R)) for _ in range(2)]
+        qs = [native.g2_mul(g2_generator(), rng.randrange(1, R)) for _ in range(2)]
+        gt, pairing_s, _ = median3(lambda: pairing_device(g1_to_device(ps, dev)[:2],
+                                                          g2_to_device(qs, dev)[:2]))
+        check([tower.f12_to_oracle(gt[..., i]) for i in range(2)]
+              == [oracle_pairing(p, q) for p, q in zip(ps, qs)],
+              "pairing_device on two random pairs equals the oracle's pairing")
+        log(f"  pairing_device, two pairs in lanes: {pairing_s:.4f} s [{card}]")
+        p15, c15, w15, x15, y15 = single15
+        bc15, bw15, bxs15 = batched15
+        lag12, ec12, ew12, i12, ey12, ebw12, etampered12 = eval12
+        other = [(bxs15[0] + 1) % R] + bxs15[1:]
+        claims = [
+            ("single 2^15", lambda e: KZGVerifier(p15, engine=e),
+             lambda v, good: v.verify_eval((x15, y15 if good else (y15 + 1) % R), c15, w15)),
+            (f"batched 2^15, k = {K_BATCH}", lambda e: KZGVerifier(p15, engine=e),
+             lambda v, good: v.verify_eval_batched(bc15, bw15, bxs15 if good else other)),
+            (f"evaluation form 2^{EXP_EVAL}",
+             lambda e: KZGVerifierEvalForm(sub_params, lag12, engine=e),
+             lambda v, good: v.verify_eval((i12, ey12 if good else (ey12 + 1) % R), ec12, ew12)),
+            # the identity witness: both G1 points of a true claim are at
+            # infinity, so no lane of the pairing product is finite
+            (f"evaluation form 2^{EXP_EVAL}, all points",
+             lambda e: KZGVerifierEvalForm(sub_params, lag12, engine=e),
+             lambda v, good: v.verify_eval_all(ec12, ebw12 if good else KZGBatchWitnessEvalForm(
+                 r=etampered12, w=ebw12.w))),
+        ]
+        pairing_rows = []
+        for name, make, claim in claims:
+            row = {"proof": name}
+            for engine in ("host", "device"):
+                v = make(engine)
+                before = kernels.launch_counts()
+                ok, row[f"{engine}_s"], row[f"{engine}_runs"] = median3(lambda: claim(v, True))
+                after = kernels.launch_counts()
+                row[f"{engine}_launches"] = {k: (after[k] - before[k]) // 3 for k in after
+                                             if after[k] != before[k]}
+                bad = claim(v, False)
+                row[f"{engine}_verdicts"] = [ok, bad]
+            check(row["device_verdicts"] == row["host_verdicts"] == [True, False],
+                  f"{name}: the device engine's verdicts {row['device_verdicts']} equal the host "
+                  f"engine's {row['host_verdicts']} (true claim, tampered claim)")
+            row["device_busy_ms"], top = device_ms(lambda: claim(v, True))
+            row["device_ms_by_kernel"] = dict(top)
+            row["device_idle_share"] = max(0.0, 1.0 - row["device_busy_ms"]
+                                           / (row["device_s"] * 1e3))
+            log(f"  {name}: host {row['host_s']:.4f} s (runs "
+                f"{', '.join(f'{t:.4f}' for t in row['host_runs'])}), launches "
+                f"{row['host_launches']}; device {row['device_s']:.4f} s (runs "
+                f"{', '.join(f'{t:.4f}' for t in row['device_runs'])}), device busy "
+                f"{row['device_busy_ms']:.2f} ms, idle share {row['device_idle_share']:.3f}, "
+                f"launches {row['device_launches']} [{card}]")
+            for k, ms in top:
+                log(f"    {ms:10.3f} ms  {k[:100]}")
+            pairing_rows.append(row)
+        report.update(pairing_device_2_s=pairing_s, device_verify=pairing_rows)
+        counts_pair, modes_pair = kernels.launch_counts(), kernels.mode_counts()
+
+    # ---- 25. launch counts of phases 23 and 24 -------------------------------------------------
+    with phase("launch counts 23, 24"):
+        for what, run, must in (
+                (f"the 2^{EXP_BIG} path", counts_big24,
+                 ("field_elementwise", "field_pow", "field_scan", "fr_horner", "g1_add", "g1_dbl",
+                  "g2_add", "g2_dbl", "g1_bucket_accumulate", "g1_horner_join")),
+                ("the device verifies", counts_pair,
+                 ("field_elementwise", "field_pow", "field_scan", "g1_add", "g1_dbl", "g2_add",
+                  "g2_dbl"))):
+            log(f"  {what}: {run}")
+            for k in must:
+                check(run[k] > 0, f"{k} launched {run[k]} times on {what}")
+            check(run["ntt_stage"] == 0, f"no per-stage K5 launch on {what}")
+        log(f"  K2 and K7 by mode: 2^{EXP_BIG} {modes_big24}; device verifies {modes_pair}")
+        runs = (counts_single, counts_batched, counts_eval, counts_big, counts_lag, counts_big24,
+                counts_pair)
+        counts = {k: sum(run[k] for run in runs) for k in counts_eval}
+        mode_totals = {k: {m: sum(run[k][m] for run in (modes_single, modes_batched, modes_eval,
+                                                         modes_big, modes_lag, modes_big24,
+                                                         modes_pair))
+                           for m in cuda_ops.MODES} for k in modes_eval}
 
     if args.profile:
         with phase(f"profile of the evaluation-form path 2^{EXP_EVAL} and the batched verify"):

@@ -1,8 +1,8 @@
 """Typed runtime configuration of the port: the knobs its main path reads.
 
 The JAX package's config (`kzg_tpu/config.py`) also carries the Mosaic
-kernel-shape knobs, the MSM A/B variants, the streamed-division chunk and
-the mesh settings; none of those is read by the port yet, so none is copied.
+kernel-shape knobs, the MSM A/B variants and the mesh settings; none of
+those is read by the port yet, so none is copied.
 No environment variable is read.
 
 `device` is the port's own: the ONE place that decides where a constructor
@@ -33,10 +33,26 @@ class KZGConfig:
     # below this point count a batched double-and-add ladder replaces the
     # bucket method (msm.pippenger._msm_small)
     small_msm_threshold: int = 512
-    # MSM / SRS-ladder chunk: above 2^this points setup_device builds the G1
-    # ladder in chunks of 2^this powers (flat peak memory); MSMs themselves
-    # are not chunked yet
-    msm_chunk_log: int = 22
+    # MSM / SRS-ladder chunk: MSMs above 2^this points run as one MSM a
+    # chunk of 2^this points with the Jacobian partials added
+    # (msm.pippenger.msm), setup_device builds the G1 ladder in chunks of
+    # 2^this powers, and single-point witnesses above 2^this coefficients
+    # stream (kzg.coeff_form.KZGProver._witness_streamed): flat peak memory.
+    # The JAX package's 22 was sized for a 15.75 GB chip. On an 80 GB H100
+    # at 2^24, one shot (24) was the fastest of 22, 23 and 24 for the
+    # commit, the witness and setup_device alike, beyond the spread of
+    # three runs, and peaked at ~10 GiB above the resident SRS and f
+    # (setup: ~11 GiB, the SRS it returns included) (PERF.md, chunk
+    # settings at 2^24)
+    msm_chunk_log: int = 24
+    # linear division above 2^(this + 1) coefficients runs chunk by chunk,
+    # 2^this coefficients a chunk, high to low (poly.polynomial.
+    # _div_by_linear_big); the streamed witness's chunks are
+    # 2^min(this, msm_chunk_log) wide. The JAX package's is 20; at the
+    # defaults the 2^24 witness took 0.7 % less time with 22 on an H100
+    # (0.4441 against 0.4470 s), beyond the spread of three runs in three
+    # of four runs, at the same peak memory (PERF.md, chunk settings at 2^24)
+    div_chunk_log: int = 22
     # fixed-base window of the device SRS ladders (table = 2^w per window)
     fixed_base_window: int = 8
     # SRS construction engine. "auto": the device ladders when the resolved
@@ -47,7 +63,9 @@ class KZGConfig:
     # directory of the fixed-base table cache (None: the repo's .srs_cache)
     srs_cache_dir: str | None = None
     # "auto"/"host": native C++ pairing engine (oracle if it is missing);
-    # "oracle": the pure-Python pairing
+    # "device": the scalar multiplications, Miller loops and final
+    # exponentiation on the device (kzg.engines, pairing/); "oracle": the
+    # pure-Python pairing
     pairing_engine: str = "auto"
     # domains of size >= 2^this use the four-step (Bailey) NTT
     # (ntt.domain.Domain._ntt_four_step); tests lower it to reach that path
@@ -70,7 +88,7 @@ class KZGConfig:
     group_ladder_window: int = 4
 
     def validate(self):
-        if self.pairing_engine not in ("auto", "host", "oracle"):
+        if self.pairing_engine not in ("auto", "host", "device", "oracle"):
             raise ValueError(f"bad pairing_engine {self.pairing_engine!r}")
         if self.setup_engine not in ("auto", "host", "device"):
             raise ValueError(f"bad setup_engine {self.setup_engine!r}")
@@ -78,6 +96,8 @@ class KZGConfig:
             raise ValueError("fixed_base_window must be in [2, 16]")
         if self.msm_chunk_log < 4:
             raise ValueError("msm_chunk_log must be >= 4")
+        if self.div_chunk_log < 8:
+            raise ValueError("div_chunk_log must be >= 8")
         if self.ntt_mxu not in ("auto", "off", "force"):
             raise ValueError(f"bad ntt_mxu {self.ntt_mxu!r}")
         if self.msm_window is not None and not (1 <= self.msm_window <= 16):

@@ -9,18 +9,20 @@
     division: numerator and Z evaluated on a coset where Z has no roots,
     multiplied by the batch inverse, interpolated back (NTTs on K5); it
     falls back to long division when a batch point lies on the coset;
+  * above 2^msm_chunk_log coefficients the single-point witness streams:
+    each quotient chunk goes straight into its MSM partial, so the full
+    quotient never sits beside the SRS (`_witness_streamed`);
   * the batched verifier computes h^Z with the G2 ladder MSM (G2 kernels);
-  * pairing checks run on the host engine: a few small points cross from
-    the device.
-
-Not ported yet: the streamed witness above 2^msm_chunk_log coefficients
-(`_witness_streamed`) and the device pairing engine.
+  * pairing checks run on the engine config.pairing_engine names: a host
+    engine, with a few small points crossing from the device, or the
+    device engine (`kzg/engines.py`), which reads one boolean.
 """
 
 from dataclasses import dataclass
 
 import torch
 
+from ..config import get_config
 from ..constants import FR_GENERATOR, R
 from ..curve import G1, g1_from_device, g2_from_device
 from ..fields import FR
@@ -29,7 +31,8 @@ from ..msm import msm_g1, msm_g2
 from ..ntt import Domain
 from ..oracle import ec_add, ec_mul, ec_neg
 from ..poly import Polynomial, lagrange_interpolation, vanishing_poly
-from ..poly.polynomial import _pad_to
+from ..poly.polynomial import _div_stream_chunk, _pad_to
+from .engines import verify_batched_device, verify_eval_device
 from .errors import (
     BatchedPointsNotOnPolynomial,
     PointNotOnPolynomial,
@@ -79,8 +82,32 @@ class KZGProver:
             raise PointNotOnPolynomial(f"({x}, {y}) not on polynomial")
         if poly.degree == 0:
             return G1.infinity((), poly.device)
+        if poly.num_coeffs() > (1 << get_config().msm_chunk_log) and x % R != 0:
+            return self._witness_streamed(poly, x % R)
         q, _ = poly.div_by_linear(x % R, want_rem=False)
         return msm_g1(_slice_srs(self.params.gs, q.num_coeffs()), q.trimmed())
+
+    def _witness_streamed(self, poly: Polynomial, x: int):
+        """The single-point witness chunk by chunk (`kzg_tpu/kzg/
+        coeff_form.py:105-143`): for each chunk of 2^min(div_chunk_log,
+        msm_chunk_log) coefficients, high to low, one `fr_horner` call
+        (`_div_stream_chunk`) gives the quotient chunk and one MSM over the
+        matching SRS slice consumes it; the Jacobian partials are summed by
+        K2. The top chunk is clipped to the n - off coefficients it holds
+        (its last quotient entry is the zero above the quotient). Peak
+        memory is the SRS, f and one chunk's work, whatever n."""
+        cfg = get_config()
+        m = 1 << min(cfg.div_chunk_log, cfg.msm_chunk_log)
+        f = poly.trimmed()
+        n = f.shape[-1]
+        pt = torch.from_numpy(FR.encode([x])).to(f.device)
+        carry = FR.zeros((1,), f.device)
+        acc = None
+        for off in range((n - 1) // m * m, -1, -m):
+            qc, carry = _div_stream_chunk(f[:, off:off + m], pt, carry)
+            part = msm_g1(tuple(t[..., off:off + qc.shape[-1]] for t in self.params.gs), qc)
+            acc = part if acc is None else G1.add(acc, part)
+        return acc
 
     def create_witness_batched(self, poly: Polynomial, xs, ys,
                                check: bool = True) -> KZGBatchWitness:
@@ -128,8 +155,11 @@ class KZGProver:
 
 class KZGVerifier:
     """Stateless verifier borrowing the SRS (coeff_form.rs:114-183). Pairing
-    checks run on the host: config.pairing_engine "auto"/"host" = native
-    C++ engine (oracle if it is missing), "oracle" = pure Python."""
+    checks run on the engine config.pairing_engine (or the per-verifier
+    `engine`) names: "auto"/"host" = native C++ engine (oracle if it is
+    missing), "device" = scalar multiplications, Miller loops and final
+    exponentiation on the device (`kzg/engines.py`), "oracle" = pure
+    Python."""
 
     def __init__(self, params: KZGParams, engine: str | None = None):
         self.params = params
@@ -141,8 +171,6 @@ class KZGVerifier:
     def _engine(self) -> str:
         if self.engine is not None:
             return self.engine
-        from ..config import get_config
-
         return get_config().pairing_engine
 
     def verify_poly(self, commitment, poly: Polynomial) -> bool:
@@ -153,6 +181,8 @@ class KZGVerifier:
     def verify_eval(self, point, commitment, witness) -> bool:
         """e(w, h^s / h^x) == e(C / g^y, h)  (coeff_form.rs:126-142)."""
         x, y = point
+        if self._engine() == "device":
+            return verify_eval_device(self.params, x % R, y % R, commitment, witness)
         c_host = g1_from_device(tuple(t[..., None] for t in commitment))[0]
         w_host = g1_from_device(tuple(t[..., None] for t in witness))[0]
         s2 = ec_add(self._hs1, ec_neg(ec_mul(self._h, x % R)))  # h^(s - x)
@@ -176,6 +206,8 @@ class KZGVerifier:
         hz = msm_g2(tuple(t[..., : z.num_coeffs()] for t in self.params.hs), z.trimmed())
         r = batch_witness.r
         gr = msm_g1(_slice_srs(self.params.gs, r.num_coeffs()), r.trimmed())
+        if self._engine() == "device":
+            return verify_batched_device(self.params, commitment, batch_witness.w, hz, gr)
         hz_host = g2_from_device(tuple(t[..., None] for t in hz))[0]
         gr_host = g1_from_device(tuple(t[..., None] for t in gr))[0]
         c_host = g1_from_device(tuple(t[..., None] for t in commitment))[0]

@@ -17,9 +17,8 @@
     Fp2 instantiations);
   * create_witness_all returns the identity point: opening at every domain
     point has quotient 0;
-  * pairing checks run on the host engine, as in coeff_form.py.
-
-Not ported: the device pairing engine; pairing stays a host route here.
+  * pairing checks run on the engine config.pairing_engine names, as in
+    coeff_form.py: a host engine or the device engine (`kzg/engines.py`).
 """
 
 from dataclasses import dataclass
@@ -37,6 +36,7 @@ from ..msm.pippenger import _digits
 from ..ntt import Domain
 from ..ntt.domain import compute_omega
 from ..oracle import ec_add, ec_mul, ec_neg
+from .engines import verify_batched_device, verify_eval_device
 from .errors import PolynomialDegreeTooLarge
 from .srs import (
     KZGParams, _fb_window, _from_limbs16, _ladders, _mask, _to_limbs16, host_engine_preferred,
@@ -357,9 +357,8 @@ class KZGProverEvalForm:
 
 
 class KZGVerifierEvalForm:
-    """Reference eval_form.rs:149-218. Pairing checks run on the host:
-    config.pairing_engine (or the per-verifier override) "auto"/"host" =
-    native C++ engine (oracle if it is missing), "oracle" = pure Python."""
+    """Reference eval_form.rs:149-218. Pairing engine selection as in
+    KZGVerifier (config.pairing_engine or the per-verifier override)."""
 
     def __init__(self, params: KZGParams, lagrange: LagrangeSRS,
                  engine: str | None = None):
@@ -387,6 +386,8 @@ class KZGVerifierEvalForm:
         """Pairing check at x = omega^i (eval_form.rs:173-190)."""
         i, y = point
         x = pow(self.dom.omega, i, R)
+        if self._engine() == "device":
+            return verify_eval_device(self.params, x, y % R, commitment, witness)
         c_host = g1_from_device(tuple(t[..., None] for t in commitment))[0]
         w_host = g1_from_device(tuple(t[..., None] for t in witness))[0]
         s2 = ec_add(self._hs1, ec_neg(ec_mul(self._h, x)))
@@ -410,6 +411,8 @@ class KZGVerifierEvalForm:
         z[:, d - 1] = one
         hz = msm_g2(self.lagrange.lh, z)
         gr = msm_g1(self.lagrange.lg, witness.r)
+        if self._engine() == "device":
+            return verify_batched_device(self.params, commitment, witness.w, hz, gr)
         hz_host = g2_from_device(tuple(t[..., None] for t in hz))[0]
         gr_host = g1_from_device(tuple(t[..., None] for t in gr))[0]
         c_host = g1_from_device(tuple(t[..., None] for t in commitment))[0]

@@ -39,8 +39,11 @@ Deviations from the reference:
     ranked longest first, so the threads of a warp run equal trip counts:
     the reference's occupancy ranking (`:529-540`), done for warps.
 Below small_msm_threshold points a batched double-and-add ladder on K2 plus
-a tree sum is used (`_msm_small`), as in the reference. MSMs are not chunked
-above 2^msm_chunk_log points yet (the reference's `:818-833`).
+a tree sum is used (`_msm_small`), as in the reference. Above
+2^msm_chunk_log points an MSM runs as one MSM a chunk of 2^msm_chunk_log
+points, each with its own window, the Jacobian partials summed by K2
+`add` (the reference's `:818-833`): the digits, sort and row table are one
+chunk's.
 
 G2 (`msm_g2`) takes the same two routes with the same window rule as the
 reference's `msm()`: the ladder below small_msm_threshold points, the
@@ -338,6 +341,14 @@ def msm(curve, points, scalars_mont, c: int | None = None):
     n = xa.shape[-1]
     if scalars_mont.shape[-1] != n:
         raise ValueError(f"{n} points but {scalars_mont.shape[-1]} scalars")
+    chunk = 1 << get_config().msm_chunk_log
+    if n > chunk:
+        acc = None
+        for off in range(0, n, chunk):
+            part = msm(curve, tuple(t[..., off:off + chunk] for t in points),
+                       scalars_mont[..., off:off + chunk], c)
+            acc = part if acc is None else curve.add(acc, part)
+        return acc
     if c is None:
         c = effective_window(n)
     small = n < get_config().small_msm_threshold

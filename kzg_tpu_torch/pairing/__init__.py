@@ -1,0 +1,31 @@
+"""The BLS12-381 pairing on the device: the Fp2 / Fp6 / Fp12 tower, the
+optimal ate Miller loop and the final exponentiation (port of
+`kzg_tpu/pairing/`), as tensor code over K1 and `field_pow`."""
+
+from .tower import (
+    f12_conj,
+    f12_eq,
+    f12_frobenius,
+    f12_from_oracle,
+    f12_inv,
+    f12_is_one,
+    f12_mul,
+    f12_one,
+    f12_pow_static,
+    f12_sqr,
+    f12_to_oracle,
+)
+from .pairing import (
+    final_exp_device,
+    miller_loop_device,
+    pairing_check_device,
+    pairing_device,
+)
+
+__all__ = [
+    "f12_mul", "f12_sqr", "f12_inv", "f12_conj", "f12_frobenius",
+    "f12_pow_static", "f12_one", "f12_is_one", "f12_eq",
+    "f12_from_oracle", "f12_to_oracle",
+    "miller_loop_device", "final_exp_device", "pairing_device",
+    "pairing_check_device",
+]

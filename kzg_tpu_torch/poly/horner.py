@@ -11,8 +11,9 @@ mode, `_eval_many` (`:94-118`), for f (8, n) and k points x (8, k):
 
 The carry in and the carry out (rem) let a division run one chunk of
 coefficients a call, high to low: a chunk's quotient is q here with the
-carry in as its top entry (the streamed division of
-`kzg_tpu/poly/polynomial.py:218-228` is not ported yet).
+carry in as its top entry, and its carry out is rem
+(`poly.polynomial._div_stream_chunk`, the streamed division of
+`kzg_tpu/poly/polynomial.py:217-228`).
 
 CUDA side (`csrc/scan.cuh`, `horner_kernel`): tiles of 1024 coefficients,
 each thread's run of 4 folded with carry 0, the carries scanned across the

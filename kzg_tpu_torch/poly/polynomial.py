@@ -5,18 +5,18 @@ leading, coefficient index on the batch axis) with the degree tracked as a
 host int. Evaluation and linear division, XLA scans over the K1 kernel in
 the JAX package, run on the Horner kernel `fr_horner` (`poly/horner.py`), at any number of
 points.
+Above 2^(div_chunk_log + 1) coefficients the linear division runs chunk by
+chunk, high to low (`_div_by_linear_big`, one `fr_horner` call a chunk,
+`_div_stream_chunk`), which is also the step of the streamed witness.
 Multiplication is NTT-based at every size (`_mul_ntt`: both operands in
 one stacked forward transform and one inverse, each one `ntt_block`
 launch up to 2^12 points); long division is a schoolbook loop for short quotients
 and Newton-inverse division above `newton_div_threshold` (poly/newton.py).
-
-Not ported yet: the chunked linear division for the streamed witness
-(`_div_by_linear_big`, `_div_stream_consts`, `_div_stream_chunk`).
 """
 
 import torch
 
-from ..config import resolve_device
+from ..config import get_config, resolve_device
 from ..fields import FR
 from ..ntt import Domain
 from .horner import fr_horner
@@ -67,6 +67,40 @@ def _div_by_linear(f: torch.Tensor, x: torch.Tensor):
     (`kzg_tpu/poly/polynomial.py:121-145`), by `fr_horner`.
     Returns (8, k, n-1) quotients and (8, k) remainders f(x)."""
     return fr_horner(f, x)
+
+
+def _div_stream_chunk(fc: torch.Tensor, x: torch.Tensor, carry: torch.Tensor):
+    """One high-to-low chunk step of the linear division f / (X - x)
+    (`kzg_tpu/poly/polynomial.py:217-228`): fc (8, m) the chunk's
+    coefficients, x (8, 1), carry (8, 1) the Horner value of the
+    coefficients above the chunk (0 for the top one). Returns the chunk's
+    quotient (8, m) and the new carry (8, 1); the last carry is f(x).
+
+    One `fr_horner` call: the reference's carry C_c is Horner's h_off and
+    its q_{off + j} is h_{off + j + 1}, so the chunk quotient is fr_horner's
+    q with the carry in on top, and the carry out is its remainder, the
+    same canonical words. The reference's per-divisor constants
+    (`_div_stream_consts`: powers of x and of 1/x over a chunk) have no
+    counterpart: the Horner kernel needs only x."""
+    q, rem = fr_horner(fc, x, carry=carry)
+    return torch.cat([q[:, 0], carry], dim=-1), rem
+
+
+def _div_by_linear_big(f: torch.Tensor, x: torch.Tensor, chunk_log: int):
+    """Memory-bounded `_div_by_linear` for one divisor x (8, 1)
+    (`kzg_tpu/poly/polynomial.py:148-195`): chunks of 2^chunk_log
+    coefficients, high to low, each one `_div_stream_chunk` written into one
+    preallocated quotient, so the temporaries are one chunk's. Returns
+    (q (8, 1, max(n - 1, 1)), rem (8, 1)). At x = 0 every step is the
+    coefficient shift (h_j = f_j), as in the reference."""
+    n = f.shape[-1]
+    m = 1 << chunk_log
+    q = torch.empty((FR.W, n), dtype=torch.int32, device=f.device)
+    carry = FR.zeros((1,), f.device)
+    for off in range((n - 1) // m * m, -1, -m):
+        qc, carry = _div_stream_chunk(f[:, off:off + m], x, carry)
+        q[:, off:off + qc.shape[-1]] = qc
+    return q[:, None, :max(n - 1, 1)], carry
 
 
 def _long_division(f: torch.Tensor, d: torch.Tensor, nf: int, nd: int):
@@ -252,8 +286,6 @@ class Polynomial:
         """(quotient, remainder or None): None iff the division is exact.
         Quotients longer than newton_div_threshold use reversal + Newton
         inverse (poly/newton.py), shorter ones the schoolbook loop."""
-        from ..config import get_config
-
         nf, nd = self.num_coeffs(), divisor.num_coeffs()
         if nf - nd + 1 > get_config().newton_div_threshold:
             from .newton import newton_divmod
@@ -269,9 +301,15 @@ class Polynomial:
 
     def div_by_linear(self, x: int, want_rem: bool = True):
         """Divide by (X - x); returns (quotient, remainder int or None).
-        want_rem=False skips the device -> host read of the remainder."""
+        want_rem=False skips the device -> host read of the remainder.
+        Above 2^(div_chunk_log + 1) coefficients the division runs chunk by
+        chunk (`_div_by_linear_big`), as in the reference (`:465-473`)."""
         pt = torch.from_numpy(FR.encode([x])).to(self.device)
-        q, rem = _div_by_linear(self.trimmed(), pt)
+        chunk_log = get_config().div_chunk_log
+        if self.num_coeffs() > (2 << chunk_log):
+            q, rem = _div_by_linear_big(self.trimmed(), pt, chunk_log)
+        else:
+            q, rem = _div_by_linear(self.trimmed(), pt)
         qp = Polynomial(q[:, 0, :], max(0, self.degree - 1))
         return qp, (FR.decode(rem)[0] if want_rem else None)
 

@@ -139,6 +139,8 @@ def test_config_validates_new_fields():
     ("fixed_base_window", 1, (2, 8, 16)),
     ("fixed_base_window", 17, (8,)),
     ("msm_chunk_log", 3, (4, 22)),
+    ("div_chunk_log", 7, (8, 20, 24)),
+    ("pairing_engine", "gpu", ("auto", "host", "device", "oracle")),
 ])
 def test_config_validates_setup_and_mxu_fields(field, bad, good):
     with pytest.raises(ValueError):
@@ -154,6 +156,8 @@ def test_config_defaults_of_setup_and_mxu_fields(default_config):
     assert default_config.setup_engine == "auto"
     assert default_config.fixed_base_window == 8
     assert default_config.srs_cache_dir is None
-    assert default_config.msm_chunk_log == 22
+    assert default_config.msm_chunk_log == 24
+    assert default_config.div_chunk_log == 22
+    assert default_config.pairing_engine == "auto"
     with pytest.raises(TypeError):
         config.configure(setup_device=True)

@@ -15,7 +15,10 @@ K5's block entry `ntt_block` at the paths' shapes (every scale, the
 transposed store) and whole transforms on it (launches per transform, the
 four-step recursion at a lowered BLOCK_MAX_EXP, a second card where there
 is one), K6 (K7's narrow kernel at S = 1); the matmul-DFT NTT (neither K5 entry launched) and device setup on the card; the default device; and no fallback when the
-kernel build fails.
+kernel build fails. The 2^24 path's streamed pieces at 2^12 with lowered
+chunk logs (the streamed witness, the chunked division and MSM against
+their one-shot forms), and the device pairing against the oracle and its
+engine against the host engine.
 
 Needs a CUDA device and nvcc; skips elsewhere. This file imports no JAX, so
 it runs where JAX is absent:
@@ -871,3 +874,97 @@ def test_no_fallback_when_the_build_fails(dev, monkeypatch):
     g = tuple(t.to(dev) for t in g2_generator_device(512))
     with pytest.raises(kernels.KernelError):
         msm_g2((g[0], g[1], inf), FR.one((512,), dev))
+
+
+def test_streamed_witness_and_chunked_division_on_the_card(dev, monkeypatch):
+    """2^12 coefficients with msm_chunk_log = 10 and div_chunk_log = 8: the
+    streamed witness (chunks of 2^8, one fr_horner call and one MSM each)
+    equals the one-shot witness in affine; the chunked division
+    (`_div_by_linear_big`, n one above a multiple of the chunk, x = 0 too)
+    equals the one-shot division word for word, and so does the chunked
+    MSM the one-shot MSM."""
+    from kzg_tpu_torch.kzg import setup
+    from kzg_tpu_torch.kzg.coeff_form import KZGProver, g1_compressed
+    from kzg_tpu_torch.poly import Polynomial
+    from kzg_tpu_torch.poly.polynomial import _div_by_linear, _div_by_linear_big
+
+    n = 1 << 12
+    rs = np.random.default_rng(12)
+    coeffs = [int.from_bytes(rs.bytes(32), "little") % R for _ in range(n)]
+    x = int.from_bytes(rs.bytes(32), "little") % R
+    y = sum(c * pow(x, i, R) for i, c in enumerate(coeffs)) % R
+    params = setup(0xBEEF, n)
+    prover = KZGProver(params)
+    poly = Polynomial.from_ints(coeffs)
+    one_shot = prover.create_witness(poly, (x, y))
+    base = config.get_config()
+    monkeypatch.setattr(config, "_config",
+                        dataclasses.replace(base, msm_chunk_log=10, div_chunk_log=8))
+    kernels.reset_launches()
+    streamed = prover.create_witness(poly, (x, y))
+    assert kernels.launch_counts()["fr_horner"] >= 16
+    assert g1_compressed(streamed) == g1_compressed(one_shot)
+    chunked = msm_g1(params.gs, poly.trimmed())
+    monkeypatch.setattr(config, "_config", base)
+    assert g1_compressed(chunked) == g1_compressed(msm_g1(params.gs, poly.trimmed()))
+    f = poly.trimmed()
+    for m, pt in ((n, x), (n - 255, x), (n, 0)):
+        ptw = torch.from_numpy(FR.encode([pt])).to(dev)
+        assert _equal(_div_by_linear_big(f[:, :m], ptw, 8), _div_by_linear(f[:, :m], ptw))
+
+
+def test_device_pairing_and_engine_on_the_card(dev):
+    """pairing_device on two random pairs equals the oracle's pairing; the
+    device engine's verdicts equal the host engine's on a 2^8 proof, true
+    and tampered, single and batched (k = 3), and on the evaluation form's
+    all-points check at d = 2^8."""
+    from kzg_tpu_torch.curve import g1_to_device, g2_to_device
+    from kzg_tpu_torch.kzg import setup
+    from kzg_tpu_torch.kzg.coeff_form import KZGProver, KZGVerifier
+    from kzg_tpu_torch.kzg.eval_form import (
+        KZGBatchWitnessEvalForm, KZGProverEvalForm, KZGVerifierEvalForm, compute_lagrange_basis,
+    )
+    from kzg_tpu_torch.oracle import g1_generator, g2_generator, pairing
+    from kzg_tpu_torch.pairing import pairing_device, tower
+    from kzg_tpu_torch.poly import Polynomial
+
+    rs = np.random.default_rng(2)
+    ps = [native.g1_mul(g1_generator(), int.from_bytes(rs.bytes(32), "little") % R)
+          for _ in range(2)]
+    qs = [native.g2_mul(g2_generator(), int.from_bytes(rs.bytes(32), "little") % R)
+          for _ in range(2)]
+    p_aff, q_aff = g1_to_device(ps)[:2], g2_to_device(qs)[:2]
+    got = pairing_device(p_aff, q_aff)
+    assert [tower.f12_to_oracle(got[..., i]) for i in range(2)] == [
+        pairing(p, q) for p, q in zip(ps, qs)]
+    n = 1 << 8
+    coeffs = [int.from_bytes(rs.bytes(32), "little") % R for _ in range(n)]
+    xs = [int.from_bytes(rs.bytes(32), "little") % R for _ in range(3)]
+    ys = [sum(c * pow(t, i, R) for i, c in enumerate(coeffs)) % R for t in xs]
+    params = setup(0xFACE, n)
+    prover = KZGProver(params)
+    poly = Polynomial.from_ints(coeffs)
+    c = prover.commit(poly)
+    w = prover.create_witness(poly, (xs[0], ys[0]))
+    bw = prover.create_witness_batched(poly, xs, ys)
+    host, device = KZGVerifier(params, engine="host"), KZGVerifier(params, engine="device")
+    for y in (ys[0], (ys[0] + 1) % R):
+        assert device.verify_eval((xs[0], y), c, w) == host.verify_eval((xs[0], y), c, w)
+    for pts in (xs, [xs[0], xs[1], (xs[2] + 1) % R]):
+        assert device.verify_eval_batched(c, bw, pts) == host.verify_eval_batched(c, bw, pts)
+    assert device.verify_eval((xs[0], ys[0]), c, w) and device.verify_eval_batched(c, bw, xs)
+    # the evaluation form's all-points check: the identity witness puts both
+    # G1 points of a true claim at infinity, no lane of the product finite
+    lag = compute_lagrange_basis(params, 8)
+    evals = torch.from_numpy(FR.encode(coeffs)).to(dev)
+    tampered = evals.clone()
+    tampered[:, 7] = evals[:, 8]
+    ec = KZGProverEvalForm(params, lag).commit(evals)
+    ew = KZGProverEvalForm(params, lag).create_witness_all()
+    e_host = KZGVerifierEvalForm(params, lag, engine="host")
+    e_device = KZGVerifierEvalForm(params, lag, engine="device")
+    for r in (evals, tampered):
+        bw_all = KZGBatchWitnessEvalForm(r=r, w=ew)
+        assert e_device.verify_eval_all(ec, bw_all) == e_host.verify_eval_all(ec, bw_all)
+    assert e_device.verify_eval_all(ec, KZGBatchWitnessEvalForm(r=evals, w=ew))
+    assert not e_device.verify_eval_all(ec, KZGBatchWitnessEvalForm(r=tampered, w=ew))
