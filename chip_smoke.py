@@ -189,7 +189,43 @@ non-zero before the result line:
                 before it): K1, field_pow, field_scan, fr_horner, K2 (G1 and
                 G2 add and dbl), K3 and K4 > 0 on the 2^24 path; K1,
                 field_pow, field_scan and K2 on the device verifies;
-                ntt_stage 0 on both.
+                ntt_stage 0 on both;
+ 26. sharded  - `kzg_tpu_torch.parallel` at world 1 on NCCL (a file store
+                under build/): ShardedDomain(2^20)'s ntt, intt, coset_ntt,
+                coset_intt and ntt_t -> intt_t equal Domain(2^20) word for
+                word; make_sharded_msm over G1 at 2^20 (phase 23's SRS) and
+                G2 at 2^12 equals msm in affine form; then, counted from a
+                reset: the commit-witness step at 2^24 on phase 23's SRS and
+                f (median of 3; commit, y and witness equal phase 23's in
+                affine form, the host engine accepts and rejects a tampered
+                y; one more call's launches, one's parts by CUDA events (the
+                MSMs, the coset transforms, batch_inv, y, the all_to_all and
+                all_gather) and one's peak memory above what was allocated
+                before it), the batched step at 2^16, k = 64 (equal to
+                create_witness_batched; verify_eval_batched accepts) and the
+                evaluation-form step at 2^14 at indices 5 and 2^14 - 3
+                (equal to the one-device prover; verify_eval accepts), each
+                a median of 3 beside the one-device commit and witness
+                (timed before the count), their ntt_block, field_scan and
+                fr_horner calls recorded by shape; then
+                kzg_tpu_torch.smoke.main(), bench.harness --sizes 16,64
+                (every group's keys) and bench.scaling --devices 1. With two
+                cards or more, the MSMs and the 2^24 step also on a world of
+                every card (the largest power of two), one NCCL process a
+                card (`--sharded-rank`), equal to world 1; with one card the
+                phase says so;
+ 27. replay   - every ntt_block shape phase 26's steps launched (Domain(24)'s
+                two 2^12-point passes over 4,096 columns among them) on
+                random words with 0, 1 and r - 1 planted, every field_scan
+                call (the 2^24-wide rows of powers, batch_inv's pair scan at
+                2^24) and every fr_horner call (the remainder over the 2^24
+                block, held against the twin's division above 2^20
+                coefficients; the first and the latest call of a shape) on
+                the recorded inputs, each against its twin word for word,
+                timed with its bound, added to the kernel's `shapes`;
+ 28. counts   - launch counts of phase 26's steps: K1, field_pow,
+                field_scan, fr_horner, ntt_block, K2, K3, K4 and K7 > 0,
+                ntt_stage 0.
 K3 and K7 run over sub-runs of at most L points of each bucket's run
 (`msm.pippenger.split_runs`); each phase that runs them prints L, the
 number of sub-runs, the longest one, the most sub-runs of one bucket and,
@@ -201,7 +237,7 @@ idle share) and the table written to JSON (default
 build/profile_eval.json).
 Every counted run prints K2's and K7's launches by mode, and requires K7
 launches in the mode its rule picks at the path's shape. The last lines are the
-kernel report (launches summed over the seven counted runs; K2 has a row a
+kernel report (launches summed over the eight counted runs; K2 has a row a
 mode, `g1_add_narrow`, `g1_add_wide` and so on, each with its launches in
 that mode, its times at 2^12 points (narrow) or 2^20 (wide), every width
 it was held and timed at, `chain_ms` (the narrow mode's critical path of
@@ -214,8 +250,9 @@ the madd's critical path at those latencies) and `throughput_ms` (the
 live steps' products at the measured rate); K6's rows (`g1_madd`,
 `g2_madd`) take their times at 2^12 lanes and carry `widths` (2^12, 2^11,
 one and four waves); `ntt_block`'s row takes its time at the 2^20
-transform's first pass and carries `shapes` (phase 22: every shape the
-paths launched, with time, twin time and bound) and `transforms` (phase 3:
+transform's first pass and carries `shapes` (phases 22 and 27: every
+shape the paths launched, with its path, time, twin time and bound) and
+`transforms` (phase 3:
 whole transforms beside the stage loop, with launches); K4's rows also carry `chain_ms`, its critical path in
 dependent products at W = 26, c = 10 times the 16-lane Fp product's
 latency; the ladders' `chain_ms` is a lane's critical path at c = 4,
@@ -223,7 +260,8 @@ W = 64 at that latency and `throughput_ms` all the lanes' Fp products at
 the rate phase 15 measured; field_pow's `chain_ms` its 381 Fp products at
 that latency; field_scan's and fr_horner's rows carry `k1_chain_ms`, the
 K1 chain each replaced, timed in the same run, and `shapes`, each timed
-shape), the nvidia-smi line, and {"ok": true, "device": {...}}.
+shape, phase 27's and fr_horner's phase 23 shapes among them), the
+nvidia-smi line, and {"ok": true, "device": {...}}.
 
 Bounds in the kernel report. `bound_ms` is the larger of two times: the
 bytes the function must move (each input read once, each output written
@@ -244,7 +282,9 @@ arithmetic.
 """
 
 import argparse
+import contextlib
 import hashlib
+import io
 import json
 import os
 import random
@@ -355,6 +395,18 @@ def bound(nbytes, mads):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = mads / INT_MADS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def scan_bound(F, mul, mode, rows, n):
+    """Bound of one field_scan call over rows x n elements of F: its input
+    read once (a column: rows elements) and its output written once (a
+    fold: rows; a pair: two arrays), one product (`mul`) or sum an element
+    a scan (a pair: two scans)."""
+    scans = 2 if mode == "pair" else 1
+    elements = (rows if mode == "column" else rows * n) + (
+        rows if mode == "total" else scans * rows * n)
+    per = 2 * F.W * F.W + F.W if mul else 2 * F.W
+    return bound(4 * F.W * elements, scans * rows * n * per)
 
 
 def block_products(shape, pre, post):
@@ -509,16 +561,62 @@ def profile_phases(phases, card, out_path):
     log(f"  wrote {out_path}")
 
 
+def sharded_rank(out_dir: str, x: int) -> int:
+    """One rank of phase 26's run across cards (`--sharded-rank DIR --x X`,
+    RANK and WORLD_SIZE set by `parallel.runtime.launch`): phase 23's SRS
+    and f, phase 26's MSM inputs (the same seeds and draws), the sharded G1
+    2^20 and G2 2^12 MSMs and the 2^24 commit-witness step (median of 3);
+    rank 0 saves the results to DIR/rank0.pt."""
+    import torch.distributed as dist
+
+    from kzg_tpu_torch import parallel
+    from kzg_tpu_torch.curve import G1, G2
+    from kzg_tpu_torch.fields import FR
+    from kzg_tpu_torch.kzg.srs import KZGParams, setup_device
+
+    parallel.initialize_distributed(init_method=f"file://{os.path.join(out_dir, 'store')}")
+    dev = parallel.runtime.rank_device()
+    mesh = parallel.make_mesh()
+    big = setup_device(SEED, 1 << EXP_BIG, g2_count=2, device=dev)
+    coeffs = random_fr_words(torch.Generator(device=dev).manual_seed(SEED + 24),
+                             (1 << EXP_BIG,), dev)
+    gen26 = torch.Generator(device=dev).manual_seed(SEED + 26)
+    random_fr_words(gen26, (1 << EXP_COSET,), dev)  # phase 26's transform input
+    key = hashlib.sha256(f"{SEED}:{N_MAIN}".encode()).hexdigest()[:16]
+    p15 = KZGParams.load(os.path.join(ROOT, "build", "kzg_tpu_torch", f"srs_{key}.npz"),
+                         device=dev)
+    out = {}
+    for curve, pts, n, what in ((G1, big.gs, 1 << EXP_COSET, "G1 2^20"),
+                                (G2, p15.hs, N_POINT, "G2 2^12")):
+        run = parallel.make_sharded_msm(mesh, "shard", curve)
+        s = random_fr_words(gen26, (n,), dev)
+        out[what] = torch.stack(run(tuple(run.shard(t[..., :n]) for t in pts),
+                                    run.shard(s))).cpu()
+    step = parallel.make_commit_witness_step(mesh, "shard", EXP_BIG)
+    args = (*(step.shard(t) for t in big.gs), step.shard(coeffs),
+            torch.from_numpy(FR.encode([x])).to(dev))
+    (commit, y, wit), out["seconds"], _ = median3(lambda: step(*args))
+    out.update(commit=torch.stack(commit).cpu(), y=y.cpu(), wit=torch.stack(wit).cpu())
+    if dist.get_rank() == 0:
+        torch.save(out, os.path.join(out_dir, "rank0.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", nargs="?", const=os.path.join("build", "profile_eval.json"),
                     metavar="JSON", help="after the checks, profile the evaluation-form path "
                     "phase by phase and write the table here")
+    ap.add_argument("--sharded-rank", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--x", type=int, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; a CUDA card is required",
               file=sys.stderr)
         return 1
+    if args.sharded_rank:
+        return sharded_rank(args.sharded_rank, args.x)
 
     from kzg_tpu_torch import kernels, native
     from kzg_tpu_torch.bench import horner as hbench
@@ -2157,34 +2255,42 @@ def main(argv=None) -> int:
 
     # ---- 22. ntt_block at every shape the paths launched it, against its twin ------------------
     cuda_field.ntt_block = launch_block
-    with phase("ntt_block at the paths' shapes"):
-        gen_r = torch.Generator(device=dev).manual_seed(SEED + 41)
+
+    def replay_blocks(calls, gen_r, path):
+        """Each recorded ntt_block shape on random words (0, 1 and r - 1
+        planted) against its twin word for word, timed with its bound: the
+        report's rows, smallest first."""
         edges = torch.from_numpy(FR.encode([0, 1, R - 1])).to(dev)
-        shapes = []
+        rows = []
         for (shape, out_bt, direction, *kinds), (tw, pre, post) in sorted(
-                block_calls.items(), key=lambda kv: (kv[0][0][1] * kv[0][0][2] * kv[0][0][3],
-                                                     str(kv[0]))):
+                calls.items(), key=lambda kv: (kv[0][0][1] * kv[0][0][2] * kv[0][0][3],
+                                               str(kv[0]))):
             x = random_fr_words(gen_r, shape[1:], dev)
             x.view(FR.W, -1)[:, :3] = edges
             args_b = (x, tw, pre, post, out_bt)
             want, plain_ms = once_ms(lambda: cuda_field.ntt_block_plain(*args_b))
             err = max_abs_diff(launch_block(*args_b), want)
             check(err == 0, f"ntt_block {shape} out_bt {out_bt} {direction} scales {kinds} "
-                            "equals its twin")
+                            f"({path}) equals its twin")
             b = block_bound(shape, out_bt, pre, post)
             products = block_products(shape, pre, post)
-            shapes.append({"shape": list(shape), "out_bt": out_bt, "direction": direction,
-                           "products": products,
-                           "throughput_ms": products / report["fr_mul_per_s"] * 1e3,
-                           "pre": kinds[0] and kinds[0][0], "post": kinds[1] and kinds[1][0],
-                           "ms": peaks.held_ms(lambda: launch_block(*args_b), 5),
-                           "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
-                           "max_abs_err": err})
+            rows.append({"shape": list(shape), "out_bt": out_bt, "direction": direction,
+                         "path": path, "products": products,
+                         "throughput_ms": products / report["fr_mul_per_s"] * 1e3,
+                         "pre": kinds[0] and kinds[0][0], "post": kinds[1] and kinds[1][0],
+                         "ms": peaks.held_ms(lambda: launch_block(*args_b), 5),
+                         "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+                         "max_abs_err": err})
             log(f"  ntt_block {shape} out_bt {out_bt} {direction} scales {kinds}: "
-                f"{shapes[-1]['ms']:.4f} ms, twin {plain_ms:.2f} ms, bound {b[0]:.6f} ms ({b[1]}), "
-                f"{products} products, {shapes[-1]['throughput_ms']:.4f} ms at the measured Fr "
+                f"{rows[-1]['ms']:.4f} ms, twin {plain_ms:.2f} ms, bound {b[0]:.6f} ms ({b[1]}), "
+                f"{products} products, {rows[-1]['throughput_ms']:.4f} ms at the measured Fr "
                 f"rate [{card}]")
             del x, want
+        return rows
+
+    with phase("ntt_block at the paths' shapes"):
+        shapes = replay_blocks(block_calls, torch.Generator(device=dev).manual_seed(SEED + 41),
+                               "phases 3-21")
         # the report's row: the 2^20 transform's first pass (the largest
         # launch with the twiddle after it)
         ref = max((r for r in shapes if r["post"] == "product"), default=shapes[-1],
@@ -2213,11 +2319,49 @@ def main(argv=None) -> int:
         big_calls["g1_horner_join"].setdefault((tuple(s_all[0].shape), c), (s_all, c))
         return launch_join(s_all, c)
 
-    def record_horner(f, x, carry=None, rem_only=False):
-        seen = big_calls["fr_horner"].setdefault(
-            (tuple(f.shape), x.shape[-1], carry is not None, rem_only), [])
-        seen[min(len(seen), 1):] = [(f, x, carry, rem_only)]
-        return launch_horner(f, x, carry, rem_only)
+    def horner_recorder(calls):
+        """fr_horner, recording into `calls` the first and the latest call
+        of each shape (a later call on the first call's own tensors, which
+        the record keeps alive, is not recorded again)."""
+        def record(f, x, carry=None, rem_only=False):
+            seen = calls.setdefault((tuple(f.shape), x.shape[-1], carry is not None, rem_only), [])
+            if not seen or any(
+                    (a is None) != (b is None) or (a is not None and a.data_ptr() != b.data_ptr())
+                    for a, b in zip(seen[0], (f, x, carry))):
+                seen[min(len(seen), 1):] = [(f, x, carry, rem_only)]
+            return launch_horner(f, x, carry, rem_only)
+        return record
+
+    def replay_horner(calls, describe):
+        """Each recorded fr_horner call against its twin word for word,
+        timed with its bound, into fr_horner's `shapes` under
+        describe(n, k, rem_only, which, carry)."""
+        for (fshape, k, has_carry, _), seen in sorted(calls.items()):
+            n = fshape[-1]
+            for which, (f, x, carry, rem_only) in zip(("first", "latest"), seen):
+                got = launch_horner(f, x, carry, rem_only)
+                # the twin's remainder alone is the reference's chunked power
+                # method, a host loop over n / 4096 chunks (63-100 s at 2^24):
+                # above 2^20 coefficients the remainder is held against the
+                # twin's division, whose remainder is the same field element
+                twin_rem_only = rem_only and n <= 1 << 20
+                want, plain_ms = once_ms(
+                    lambda: horner_mod.fr_horner_plain(f, x, carry, twin_rem_only))
+                err = max(max_abs_diff(g, w) for g, w in zip(got, want) if g is not None)
+                what = describe(n, k, rem_only, which, carry)
+                check(err == 0, f"fr_horner {what} equals its twin"
+                      + ("" if twin_rem_only == rem_only else "'s remainder in division mode"))
+                b = bound(32 * (n + (0 if rem_only else k * (n - 1)) + 2 * k),
+                          k * n * (FR_MUL_MADS + 16))
+                kinfo["fr_horner"]["shapes"][what] = {
+                    "ms": cuda_ms(lambda: launch_horner(f, x, carry, rem_only), 5),
+                    "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+                    "max_abs_err": err,
+                    "twin": "remainder only" if twin_rem_only else "division"}
+                kinfo["fr_horner"]["max_abs_err"] = max(kinfo["fr_horner"]["max_abs_err"], err)
+                log(f"  fr_horner {what}: kernel {kinfo['fr_horner']['shapes'][what]['ms']:.4f} "
+                    f"ms, twin {plain_ms:.2f} ms, bound {b[0]:.6f} ms ({b[1]}) [{card}]")
+                del got, want
 
     with phase(f"main path 2^{EXP_BIG}"):
         n24 = 1 << EXP_BIG
@@ -2249,7 +2393,7 @@ def main(argv=None) -> int:
         del coeffs
         prover24 = KZGProver(big24)
         cuda_ops.bucket_runs, cuda_ops.horner_join = record_runs, record_join
-        poly_mod.fr_horner = record_horner
+        poly_mod.fr_horner = horner_recorder(big_calls["fr_horner"])
         c24, commit24_s, ctimes = median3(lambda: prover24.commit(poly24))
         w24, witness24_s, wtimes = median3(
             lambda: prover24.create_witness(poly24, (x24, y24), check=False))
@@ -2285,7 +2429,6 @@ def main(argv=None) -> int:
                       points_per_s_2e24=n24 / commit24_s, witness_2e24_s=witness24_s,
                       verify_2e24_host_s=verify24["host"],
                       verify_2e24_device_s=verify24["device"])
-        del c24, w24
         counts_big24, modes_big24 = kernels.launch_counts(), kernels.mode_counts()
 
     # K3, K4 and fr_horner as the default 2^24 commit and witness launched
@@ -2342,30 +2485,12 @@ def main(argv=None) -> int:
                                                           err)
             log(f"  K4 W = {sshape[-1]}, c = {c}: kernel {row['ms']:.4f} ms, twin "
                 f"{plain_ms:.2f} ms, bound {b[0]:.6f} ms ({b[1]}) [{card}]")
-        for (fshape, k, has_carry, _), seen in sorted(big_calls["fr_horner"].items()):
-            n = fshape[-1]
-            for which, (f, x, carry, rem_only) in zip(("first", "latest"), seen):
-                got = launch_horner(f, x, carry, rem_only)
-                want, plain_ms = once_ms(
-                    lambda: horner_mod.fr_horner_plain(f, x, carry, rem_only))
-                err = max(max_abs_diff(g, w) for g, w in zip(got, want) if g is not None)
-                carry_zero = has_carry and not bool(carry.any())
-                what = (f"division 2^{EXP_BIG}, {which} chunk of {n} (carry "
-                        f"{'none' if not has_carry else '0' if carry_zero else 'in'})")
-                check(err == 0, f"fr_horner {what} equals its twin")
-                b = bound(32 * (n + (0 if rem_only else k * (n - 1)) + 2 * k),
-                          k * n * (FR_MUL_MADS + 16))
-                kinfo["fr_horner"]["shapes"][what] = {
-                    "ms": cuda_ms(lambda: launch_horner(f, x, carry, rem_only), 5),
-                    "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
-                    "max_abs_err": err}
-                kinfo["fr_horner"]["max_abs_err"] = max(kinfo["fr_horner"]["max_abs_err"], err)
-                log(f"  fr_horner {what}: kernel {kinfo['fr_horner']['shapes'][what]['ms']:.4f} "
-                    f"ms, twin {plain_ms:.2f} ms, bound {b[0]:.6f} ms ({b[1]}) [{card}]")
-                del got, want
+        replay_horner(big_calls["fr_horner"], lambda n, k, rem_only, which, carry: (
+            f"division 2^{EXP_BIG}, {which} chunk of {n} (carry "
+            f"{'none' if carry is None else '0' if not bool(carry.any()) else 'in'})"))
         check(all(big_calls.values()), f"the default 2^{EXP_BIG} commit and witness launched "
               f"K3, K4 and fr_horner ({ {k: len(v) for k, v in big_calls.items()} } shapes)")
-        del big_calls, rows, order, pos, length, pos64, win, idx, s_all, seen, f, x, carry
+        del big_calls, rows, order, pos, length, pos64, win, idx, s_all
 
     # the chunk settings at 2^24, not counted: setup, commit and witness
     # seconds (median of 3) and peak device memory (setup: above what was
@@ -2421,7 +2546,6 @@ def main(argv=None) -> int:
             set_config(cfg0)
         report.update(chunk_sweep_2e24=sweep, setup_sweep_2e24=setup_sweep,
                       resident_2e24_mib=resident / 2**20)
-        del big24, prover24, poly24
 
     # ---- 24. the device pairing engine against the host engine, counted ------------------------
     kernels.reset_launches()
@@ -2507,6 +2631,315 @@ def main(argv=None) -> int:
                                                          modes_big, modes_lag, modes_big24,
                                                          modes_pair))
                            for m in cuda_ops.MODES} for k in modes_eval}
+
+    # ---- 26. the sharded layer (parallel/) at world 1 on NCCL, counted ------------------------
+    # (a) the sharded transforms at 2^20 and (b) the sharded MSMs against the
+    # one-device path; (c)-(e) the three steps, counted from a reset just
+    # before (c) to just after (e); (f) the other new entry points
+    import torch.distributed as dist
+
+    from kzg_tpu_torch import parallel
+    from kzg_tpu_torch.bench import harness as hbench_mod, scaling as scaling_mod
+    from kzg_tpu_torch.kzg.coeff_form import KZGBatchWitness
+    from kzg_tpu_torch.parallel import msm as pmsm, ntt as pntt, pipeline as ppipe
+    from kzg_tpu_torch import smoke as smoke_mod
+
+    def affine1(jac):
+        return g1_from_device(tuple(t[..., None] for t in jac))[0]
+
+    with phase("sharded"):
+        store = os.path.join(ROOT, "build", "dist_store_world1")
+        if os.path.exists(store):
+            os.remove(store)
+        parallel.initialize_distributed(backend="nccl", init_method=f"file://{store}",
+                                        world_size=1, rank=0)
+        mesh = parallel.make_mesh()
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1
+              and mesh.mesh_dim_names == ("shard",),
+              "an NCCL process group of one rank and a 1-D mesh named shard")
+        gen26 = torch.Generator(device=dev).manual_seed(SEED + 26)
+        # (a) transforms
+        sd = parallel.ShardedDomain(mesh, "shard", EXP_COSET)
+        dom20 = Domain(EXP_COSET)
+        x20 = random_fr_words(gen26, (1 << EXP_COSET,), dev)
+        x20[:, :3] = torch.from_numpy(FR.encode([0, 1, R - 1])).to(dev)
+        for name in ("ntt", "intt", "coset_ntt", "coset_intt"):
+            check(torch.equal(getattr(sd, name)(sd.shard(x20)), getattr(dom20, name)(x20)),
+                  f"ShardedDomain(2^{EXP_COSET}).{name} equals Domain(2^{EXP_COSET}).{name} "
+                  "word for word")
+        tr = sd.ntt_t(sd.shard(x20))
+        check(torch.equal(tr, dom20.ntt(x20)) and torch.equal(sd.intt_t(tr), x20),
+              f"ntt_t at world 1 is the standard order, and intt_t(ntt_t(x)) == x")
+        del sd, x20, tr
+        # (b) sharded MSMs
+        msm26 = {}
+        for curve, pts, n, what in ((G1, big24.gs, 1 << EXP_COSET, "G1 2^20"),
+                                    (G2, params.hs, N_POINT, "G2 2^12")):
+            pts = tuple(t[..., :n] for t in pts)
+            s = random_fr_words(gen26, (n,), dev)
+            run = parallel.make_sharded_msm(mesh, "shard", curve)
+            got = run(tuple(run.shard(t) for t in pts), run.shard(s))
+            conv = g1_from_device if curve is G1 else g2_from_device
+            msm26[what] = conv(tuple(t[..., None] for t in got))
+            check(msm26[what]
+                  == conv(tuple(t[..., None] for t in pippenger.msm(curve, pts, s))),
+                  f"sharded MSM {what} equals msm in affine form")
+        del pts, s, got
+        x24_mont = torch.from_numpy(FR.encode([x24])).to(dev)
+        step24 = parallel.make_commit_witness_step(mesh, "shard", EXP_BIG)
+        g24 = tuple(step24.shard(t) for t in big24.gs)
+        f24 = step24.shard(poly24.coeffs)
+        # (d) and (e): their inputs and one-device references, before the count
+        exp_b, k_b = 16, 64
+        p16 = setup_device(SEED, 1 << exp_b, g2_count=k_b + 1, device=dev)
+        poly16 = Polynomial(random_fr_words(gen26, (1 << exp_b,), dev))
+        xs16 = [rng.randrange(R) for _ in range(k_b)]
+        ys16 = FR.decode(poly16.eval_many(torch.from_numpy(FR.encode(xs16)).to(dev)))
+        prover16 = KZGProver(p16)
+        # the one-device commit and batched witness, timed beside the step
+        (commit16, want16), one16_s, _ = median3(
+            lambda: (prover16.commit(poly16), prover16.create_witness_batched(
+                poly16, xs16, ys16, check=False)))
+        exp_e = 14
+        p14 = setup_device(SEED, 1 << exp_e, g2_count=2, device=dev)
+        lag14 = compute_lagrange_basis_from_secret(SEED, exp_e, device=dev)
+        evals14 = random_fr_words(gen26, (1 << exp_e,), dev)
+        eprover14 = KZGProverEvalForm(p14, lag14)
+        ms14 = (5, (1 << exp_e) - 3)
+        want14, one14_s = {"commit": eprover14.commit(evals14)}, {}
+        for m in ms14:
+            (_, want14[m]), one14_s[m], _ = median3(
+                lambda: (eprover14.commit(evals14), eprover14.create_witness(evals14, m)))
+        step16 = parallel.make_batched_witness_step(mesh, "shard", exp_b, k_b)
+        steps14 = {m: parallel.make_eval_form_step(mesh, "shard", exp_e, m) for m in ms14}
+        torch.cuda.synchronize()
+
+        # (c)-(e), counted; their ntt_block, field_scan and fr_horner calls
+        # recorded by shape (ntt_block: its tables, as from phase 3 on;
+        # field_scan: the first call of a shape; fr_horner: the first and
+        # the latest) and replayed against the twins after the count
+        block_calls, scan_calls, horner_calls = {}, {}, {}
+        launch_scan = cuda_field.field_scan
+
+        def record_scan(field, op, x, reverse=False, mode="array", n=None):
+            scan_calls.setdefault((field.name, op, reverse, mode, tuple(x.shape), n),
+                                  (field, op, x, reverse, mode, n))
+            return launch_scan(field, op, x, reverse, mode, n)
+
+        cuda_field.ntt_block, cuda_field.field_scan = record_block, record_scan
+        poly_mod.fr_horner = horner_recorder(horner_calls)
+        kernels.reset_launches()
+        out24, step24_s, step24_t = median3(lambda: step24(*g24, f24, x24_mont))
+        out16, step16_s, step16_t = median3(lambda: step16(
+            *(step16.shard(t) for t in p16.gs), step16.shard(poly16.coeffs),
+            torch.from_numpy(FR.encode(xs16)).to(dev)))
+        out14, step14_s = {}, {}
+        for m, st in steps14.items():
+            out14[m], step14_s[m], _ = median3(
+                lambda: st(*(st.shard(t) for t in lag14.lg), st.shard(evals14)))
+        torch.cuda.synchronize()
+        counts_sharded, modes_sharded = kernels.launch_counts(), kernels.mode_counts()
+        cuda_field.ntt_block, cuda_field.field_scan = launch_block, launch_scan
+        poly_mod.fr_horner = launch_horner
+
+        # (c) the 2^24 commit-witness step against phase 23
+        commit, y, wit = out24
+        check(affine1(commit) == affine1(c24),
+              f"the sharded 2^{EXP_BIG} commitment equals phase 23's commitment (affine)")
+        check(FR.decode(y) == [y24], f"the sharded 2^{EXP_BIG} y equals f(x) by Horner")
+        check(affine1(wit) == affine1(w24),
+              f"the sharded 2^{EXP_BIG} witness equals phase 23's witness (affine; phase 23 "
+              "held it to the streamed one)")
+        v24 = KZGVerifier(big24, engine="host")
+        check(v24.verify_eval((x24, y24), commit, wit)
+              and not v24.verify_eval((x24, (y24 + 1) % R), commit, wit),
+              f"the host engine accepts the sharded 2^{EXP_BIG} opening and rejects a "
+              "tampered y")
+        # one more call with its launches, one with CUDA events around its
+        # parts (the transforms include their exchanges, the MSMs their
+        # all_gather), one for its peak memory
+        before = kernels.launch_counts()
+        step24(*g24, f24, x24_mont)
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        launches24 = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        spans = {}
+
+        def timed(name, fn):
+            def wrap(*a, **kw):
+                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                out = fn(*a, **kw)
+                ev[1].record()
+                spans.setdefault(name, []).append(ev)
+                return out
+            return wrap
+
+        patched = [(ppipe, "local_msm_join", "MSMs (with their all_gather)"),
+                   (ppipe, "_coset_evals_t", "coset transforms (with their all_to_all)"),
+                   (ppipe, "_coset_interp", "coset transforms (with their all_to_all)"),
+                   (ppipe, "_eval_many_local", "y = f(x) (Horner, x^(d blk), all_gather)"),
+                   (pntt, "exchange", "all_to_all"),
+                   (pmsm, "_all_gather", "all_gather")]
+        saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patched]
+        for mod, attr, name in patched:
+            setattr(mod, attr, timed(name, getattr(mod, attr)))
+        FR.batch_inv = timed("batch_inv", FR.batch_inv)
+        _, wall = once_ms(lambda: step24(*g24, f24, x24_mont))
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+        del FR.batch_inv
+        span_ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step24(*g24, f24, x24_mont)
+        torch.cuda.synchronize()
+        peak24 = (torch.cuda.max_memory_allocated() - resident) / 2**20
+        log(f"  sharded commit-witness step 2^{EXP_BIG}, world 1: {step24_s:.4f} s (runs "
+            f"{', '.join(f'{t:.4f}' for t in step24_t)}); phase 23's commit + witness "
+            f"{commit24_s + witness24_s:.4f} s; one call's parts (CUDA events, {wall:.1f} ms): "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in span_ms.items())
+            + f"; peak {peak24:.1f} MiB above the {resident / 2**20:.1f} MiB allocated before "
+            f"it (the resident SRS and f among it) [{card}]")
+        log(f"  its launches: {launches24}")
+        for k in ("field_elementwise", "field_scan", "field_pow", "fr_horner", "ntt_block",
+                  "g1_add", "g1_dbl", "g1_bucket_accumulate", "g1_horner_join"):
+            check(launches24.get(k, 0) > 0, f"the 2^{EXP_BIG} step launched {k} "
+                  f"{launches24.get(k, 0)} times")
+        check(launches24.get("ntt_stage", 0) == 0, "no per-stage K5 launch")
+        report.update(sharded_step_2e24_s=step24_s, sharded_step_2e24_runs=step24_t,
+                      sharded_step_2e24_parts_ms=span_ms, sharded_step_2e24_peak_mib=peak24,
+                      sharded_step_2e24_launches=launches24)
+        del out24, commit, wit
+
+        # (d) the batched step against the one-device prover
+        commit, ys, r, wit = out16
+        check(FR.decode(ys) == ys16 and torch.equal(r, want16.r.trimmed()),
+              f"the sharded batched step 2^{exp_b}, k = {k_b}: ys and r equal the one-device "
+              "path's")
+        check(affine1(wit) == affine1(want16.w) and affine1(commit) == affine1(commit16),
+              f"the sharded batched step 2^{exp_b}, k = {k_b}: witness and commitment equal "
+              "the one-device prover's (affine)")
+        check(KZGVerifier(p16).verify_eval_batched(commit, KZGBatchWitness(
+            r=Polynomial(r, k_b - 1), w=wit), xs16),
+            f"verify_eval_batched accepts the sharded batched opening at k = {k_b}")
+        log(f"  sharded batched step 2^{exp_b}, k = {k_b}, world 1: {step16_s:.4f} s (runs "
+            f"{', '.join(f'{t:.4f}' for t in step16_t)}); the one-device commit and "
+            f"create_witness_batched (ys given) {one16_s:.4f} s; the evaluation-form step "
+            f"2^{exp_e}: "
+            + ", ".join(f"index {m} {step14_s[m]:.4f} s (one-device commit and witness "
+                        f"{one14_s[m]:.4f} s)" for m in ms14) + f" (medians of 3) [{card}]")
+        report.update(sharded_batched_2e16_s=step16_s, batched_2e16_s=one16_s,
+                      sharded_eval_2e14_s=step14_s, eval_2e14_s=one14_s)
+        # (e) the evaluation-form step against the one-device prover
+        everifier14 = KZGVerifierEvalForm(p14, lag14)
+        for m, (commit, y, wit) in out14.items():
+            check(affine1(commit) == affine1(want14["commit"])
+                  and affine1(wit) == affine1(want14[m])
+                  and torch.equal(y, evals14[:, m:m + 1])
+                  and everifier14.verify_eval((m, FR.decode(y)[0]), commit, wit),
+                  f"the sharded evaluation-form step 2^{exp_e} at index {m}: commitment, y "
+                  "and witness equal the one-device prover's; verify_eval accepts")
+        del out16, out14, p16, poly16, lag14, evals14, p14, prover16, commit16, want16, want14
+        dist.destroy_process_group()
+        os.remove(store)
+
+        # (f) the other new entry points
+        check(smoke_mod.main([]) == 0, "kzg_tpu_torch.smoke.main() returns 0 on the card")
+        hjson = os.path.join(ROOT, "build", "harness_16_64.json")
+        check(hbench_mod.main(["--sizes", "16,64", "--json", hjson]) == 0,
+              "bench.harness --sizes 16,64 returns 0")
+        with open(hjson) as f:
+            hres = json.load(f)["results"]
+        missing = [k for g in hbench_mod.GROUPS for n in (16, 64)
+                   for k in hbench_mod.expected_keys(g, n) if k not in hres]
+        check(not missing, f"bench.harness wrote every group's keys at 16 and 64 ({len(hres)})")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = scaling_mod.main(["--devices", "1", "--timeout", "300"])
+        sweep = json.loads(buf.getvalue().strip().splitlines()[-1])
+        check(rc == 0 and [r["devices"] for r in sweep["sweep"]] == [1],
+              f"bench.scaling --devices 1 ran one card: {sweep['sweep']}")
+        report.update(harness_16_64=hres, scaling_1=sweep["sweep"])
+
+        # more than one card: (b) and (c) on a world of every card (the
+        # largest power of two), one NCCL process a card, equal to world 1
+        cards = torch.cuda.device_count()
+        world = 1 << (cards.bit_length() - 1)
+        if world < 2:
+            log(f"  not run: the sharded MSMs and the 2^{EXP_BIG} step across cards need at "
+                f"least two cards; this machine has {cards}")
+        else:
+            del g24, f24
+            wdir = os.path.join(ROOT, "build", f"sharded_world{world}")
+            os.makedirs(wdir, exist_ok=True)
+            for fn in os.listdir(wdir):
+                os.remove(os.path.join(wdir, fn))
+            from kzg_tpu_torch.parallel.runtime import launch
+            launch([sys.executable, os.path.abspath(__file__), "--sharded-rank", wdir,
+                    "--x", str(x24)], world, 600)
+            res = dict(torch.load(os.path.join(wdir, "rank0.pt")))
+            check(g1_from_device(tuple(t[..., None] for t in res["G1 2^20"])) == msm26["G1 2^20"]
+                  and g2_from_device(tuple(t[..., None] for t in res["G2 2^12"]))
+                  == msm26["G2 2^12"],
+                  f"the sharded G1 2^20 and G2 2^12 MSMs on {world} cards equal world 1's")
+            check(affine1(res["commit"]) == affine1(c24) and FR.decode(res["y"]) == [y24]
+                  and affine1(res["wit"]) == affine1(w24),
+                  f"the 2^{EXP_BIG} step on {world} cards equals world 1 ({res['seconds']:.4f} "
+                  "s a call)")
+            log(f"  {world} cards: the 2^{EXP_BIG} step {res['seconds']:.4f} s a call (median "
+                f"of 3) against world 1's {step24_s:.4f} s [{card}]")
+        del big24, prover24, poly24, c24, w24
+
+    # ---- 27. ntt_block, field_scan and fr_horner at the shapes of phase 26's steps -----------
+    # each call recorded in the counted window, against its twin word for
+    # word (launches not counted)
+    with phase("ntt_block, field_scan and fr_horner at the sharded steps' shapes"):
+        rows = replay_blocks(block_calls, torch.Generator(device=dev).manual_seed(SEED + 27),
+                             "sharded steps")
+        kinfo["ntt_block"]["shapes"] += rows
+        kinfo["ntt_block"]["max_abs_err"] = max(
+            [kinfo["ntt_block"]["max_abs_err"]] + [r["max_abs_err"] for r in rows])
+        op_names = {cuda_field.ADD: "add", cuda_field.MUL: "mul"}
+        for F, op, x, reverse, mode, n in scan_calls.values():
+            got = launch_scan(F, op, x, reverse, mode, n)
+            want, plain_ms = once_ms(
+                lambda: cuda_field.field_scan_plain(F, op, x, reverse, mode, n))
+            err = max_abs_diff(got, want)
+            rows_n = x[0].numel() if mode == "column" else x[0].numel() // x.shape[-1]
+            length = n if mode == "column" else x.shape[-1]
+            what = (f"{F.name} {op_names[op]} {mode}{' reverse' if reverse else ''}, {rows_n} x "
+                    f"{length} (sharded steps)")
+            check(err == 0, f"field_scan {what} equals its twin")
+            b = scan_bound(F, op == cuda_field.MUL, mode, rows_n, length)
+            kinfo["field_scan"]["shapes"][what] = {
+                "ms": cuda_ms(lambda: launch_scan(F, op, x, reverse, mode, n), 5),
+                "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1], "max_abs_err": err}
+            kinfo["field_scan"]["max_abs_err"] = max(kinfo["field_scan"]["max_abs_err"], err)
+            log(f"  field_scan {what}: kernel {kinfo['field_scan']['shapes'][what]['ms']:.4f} ms, "
+                f"twin {plain_ms:.2f} ms, bound {b[0]:.6f} ms ({b[1]}) [{card}]")
+            del got, want
+        replay_horner(horner_calls, lambda n, k, rem_only, which, carry: (
+            f"{'evaluation' if rem_only else 'division'} of {n} coefficients at {k} point"
+            f"{'s' * (k > 1)}, {which} call (sharded steps)"))
+        check(block_calls and scan_calls and horner_calls,
+              f"the sharded steps' ntt_block, field_scan and fr_horner calls were recorded "
+              f"({len(block_calls)}, {len(scan_calls)} and {len(horner_calls)} shapes) and each "
+              "equals its twin")
+        del block_calls, scan_calls, horner_calls, rows, x
+
+    counts = {k: counts[k] + counts_sharded[k] for k in counts}
+    mode_totals = {k: {m: mode_totals[k][m] + modes_sharded[k][m] for m in cuda_ops.MODES}
+                   for k in mode_totals}
+    with phase("launch counts 26"):
+        log(f"  the sharded steps: {counts_sharded}")
+        for k in ("field_elementwise", "field_pow", "field_scan", "fr_horner", "ntt_block",
+                  "g1_add", "g1_dbl", "g1_bucket_accumulate", "g1_horner_join", "g1_madd_multi"):
+            check(counts_sharded[k] > 0, f"{k} launched {counts_sharded[k]} times on the "
+                  "sharded steps")
+        check(counts_sharded["ntt_stage"] == 0, "no per-stage K5 launch on the sharded steps")
+        log(f"  K2 and K7 by mode: {modes_sharded}")
 
     if args.profile:
         with phase(f"profile of the evaluation-form path 2^{EXP_EVAL} and the batched verify"):

@@ -1,8 +1,8 @@
 """Typed runtime configuration of the port: the knobs its main path reads.
 
 The JAX package's config (`kzg_tpu/config.py`) also carries the Mosaic
-kernel-shape knobs, the MSM A/B variants and the mesh settings; none of
-those is read by the port yet, so none is copied.
+kernel-shape knobs and the MSM A/B variants; the port reads neither, so
+neither is copied.
 No environment variable is read.
 
 `device` is the port's own: the ONE place that decides where a constructor
@@ -86,6 +86,10 @@ class KZGConfig:
     # of 2^c - 1 multiples per lane, ceil(255 / c) rounds of c doublings
     # and one madd
     group_ladder_window: int = 4
+    # mesh of the sharded pipeline (parallel.make_mesh): None = a 1-D mesh
+    # over every rank of the process group; the axis names of its dimensions
+    mesh_shape: tuple | None = None
+    mesh_axis_names: tuple = ("shard",)
 
     def validate(self):
         if self.pairing_engine not in ("auto", "host", "device", "oracle"):

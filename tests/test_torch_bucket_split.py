@@ -9,7 +9,8 @@ plain twins of kernels K2, K3 and K7.
   * skewed MSMs on both bucket routes (the bucket loop at n = 600, the K3
     twin at a small n with c = 10) against the JAX package's native engine
     (`kzg_tpu.native.g1_msm` / `g2_msm`), in affine: all-equal scalars,
-    [R - 1] + [1] * (n - 1), and a batch whose weight sits in the top window;
+    [R - 1] + [1] * (n - 1), and a batch whose weight sits in the top window
+    (G2 on the K3 route in test_torch_bucket_split_g2.py);
   * the K3 route equals the bucket-loop route limb for limb where a bucket
     is longer than L.
 
@@ -176,10 +177,19 @@ def _msm_case(group, pattern, n, c):
     return pts, scal
 
 
-@pytest.mark.parametrize("pattern", ["equal", "minus-one", "top-heavy"])
-@pytest.mark.parametrize("route", ["loop-600", "k3-c10"])
-@pytest.mark.parametrize("group", ["g1", "g2"])
+PATTERNS = ["equal", "minus-one", "top-heavy"]
+
+
+# G2 on the K3 route sits in test_torch_bucket_split_g2.py, so that a
+# parallel run gives it a worker of its own (~3 min of the plain twins)
+@pytest.mark.parametrize("pattern", PATTERNS)
+@pytest.mark.parametrize("group,route", [("g1", "loop-600"), ("g1", "k3-c10"),
+                                         ("g2", "loop-600")])
 def test_skewed_msm_matches_native(group, route, pattern):
+    check_skewed_msm(group, route, pattern)
+
+
+def check_skewed_msm(group, route, pattern):
     """The bucket loop at n = 600 (c = 4: 16 buckets a window, the fullest
     holds every point) and the K3 twin at n = 96 with c = 10, against the
     native engine's MSM."""

@@ -18,7 +18,10 @@ is one), K6 (K7's narrow kernel at S = 1); the matmul-DFT NTT (neither K5 entry 
 kernel build fails. The 2^24 path's streamed pieces at 2^12 with lowered
 chunk logs (the streamed witness, the chunked division and MSM against
 their one-shot forms), and the device pairing against the oracle and its
-engine against the host engine.
+engine against the host engine. The sharded layer at world 1 on NCCL in
+this process (`kzg_tpu_torch.parallel`): every sharded transform against
+`Domain`, the sharded G1 and G2 MSMs against `msm`, and the three steps
+against the one-device provers, at 2^10.
 
 Needs a CUDA device and nvcc; skips elsewhere. This file imports no JAX, so
 it runs where JAX is absent:
@@ -968,3 +971,98 @@ def test_device_pairing_and_engine_on_the_card(dev):
         assert e_device.verify_eval_all(ec, bw_all) == e_host.verify_eval_all(ec, bw_all)
     assert e_device.verify_eval_all(ec, KZGBatchWitnessEvalForm(r=evals, w=ew))
     assert not e_device.verify_eval_all(ec, KZGBatchWitnessEvalForm(r=tampered, w=ew))
+
+
+# ---- the sharded layer (parallel/) at world 1 on NCCL ---------------------------------------
+
+SHARDED_EXP = 10
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """A one-rank NCCL process group in this process and its 1-D mesh."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+    from kzg_tpu_torch import parallel
+
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    parallel.initialize_distributed(backend="nccl", init_method=f"file://{store}",
+                                    world_size=1, rank=0)
+    yield parallel.make_mesh()
+    dist.destroy_process_group()
+
+
+def _fr_dev(seed, n, dev):
+    return torch.from_numpy(FR.encode(_ints(seed, R, n))).to(dev)
+
+
+def _affine(jac):
+    return g1_from_device(tuple(t[..., None] for t in jac))[0]
+
+
+def test_sharded_domain_world_one(dev, nccl_mesh):
+    from kzg_tpu_torch.parallel import ShardedDomain
+
+    sd = ShardedDomain(nccl_mesh, "shard", SHARDED_EXP)
+    dom = Domain(SHARDED_EXP)
+    x = _fr_dev(40, 1 << SHARDED_EXP, dev)
+    for name in ("ntt", "intt", "coset_ntt", "coset_intt", "ntt_t", "coset_ntt_t"):
+        assert torch.equal(getattr(sd, name)(sd.shard(x)),
+                           getattr(dom, name.removesuffix("_t"))(x)), name
+    assert torch.equal(sd.intt_t(dom.ntt(x)), x)
+    assert torch.equal(sd.coset_intt_t(dom.coset_ntt(x)), x)
+
+
+def test_sharded_msm_world_one(dev, nccl_mesh):
+    from kzg_tpu_torch.kzg.srs import setup_device
+    from kzg_tpu_torch.parallel import make_sharded_msm, pad_msm_inputs
+
+    params = setup_device(41, 1000, device=dev)
+    for curve, pts, conv in ((G1, params.gs, g1_from_device), (G2, params.hs, g2_from_device)):
+        s = _fr_dev(42, 1000, dev)
+        run = make_sharded_msm(nccl_mesh, "shard", curve)
+        padded, sp = pad_msm_inputs(curve, pts, s, 1)
+        got = run(tuple(run.shard(t) for t in padded), run.shard(sp))
+        want = pippenger.msm(curve, pts, s)
+        assert conv(tuple(t[..., None] for t in got)) == conv(tuple(t[..., None] for t in want))
+
+
+def test_sharded_steps_world_one(dev, nccl_mesh):
+    from kzg_tpu_torch.kzg import KZGBatchWitness, KZGProver, KZGVerifier
+    from kzg_tpu_torch.kzg.eval_form import (
+        KZGProverEvalForm, compute_lagrange_basis_from_secret,
+    )
+    from kzg_tpu_torch.kzg.srs import setup_device
+    from kzg_tpu_torch.parallel import (
+        make_batched_witness_step, make_commit_witness_step, make_eval_form_step,
+    )
+    from kzg_tpu_torch.poly import Polynomial
+
+    n, k, secret = 1 << SHARDED_EXP, 8, 43
+    params = setup_device(secret, n, g2_count=k + 1, device=dev)
+    prover = KZGProver(params)
+    f = Polynomial(_fr_dev(44, n, dev))
+    x = _ints(45, R, 4)[3]
+    step = make_commit_witness_step(nccl_mesh, "shard", SHARDED_EXP)
+    commit, y, wit = step(*params.gs, f.coeffs, torch.from_numpy(FR.encode([x])).to(dev))
+    assert FR.decode(y) == [f.eval(x)]
+    assert _affine(commit) == _affine(prover.commit(f))
+    assert _affine(wit) == _affine(prover.create_witness(f, (x, FR.decode(y)[0])))
+
+    xs = _ints(46, R, k + 3)[3:]
+    step = make_batched_witness_step(nccl_mesh, "shard", SHARDED_EXP, k)
+    commit, ys, r, wit = step(*params.gs, f.coeffs, torch.from_numpy(FR.encode(xs)).to(dev))
+    want = prover.create_witness_batched(f, xs, FR.decode(ys))
+    assert torch.equal(r, want.r.trimmed()) and _affine(wit) == _affine(want.w)
+    assert KZGVerifier(params).verify_eval_batched(
+        commit, KZGBatchWitness(r=Polynomial(r, k - 1), w=wit), xs)
+
+    lag = compute_lagrange_basis_from_secret(secret, SHARDED_EXP, device=dev)
+    eprover = KZGProverEvalForm(params, lag)
+    evals = _fr_dev(47, n, dev)
+    for m in (3, n - 2):
+        commit, y, wit = make_eval_form_step(nccl_mesh, "shard", SHARDED_EXP, m)(*lag.lg, evals)
+        assert torch.equal(y, evals[:, m:m + 1])
+        assert _affine(commit) == _affine(eprover.commit(evals))
+        assert _affine(wit) == _affine(eprover.create_witness(evals, m))

@@ -29,9 +29,11 @@ from kzg_tpu_torch.poly import Polynomial
 def _cpu_device():
     """The port places tensors on the card by default; these tests run its
     plain twins, so they ask for the CPU."""
-    old = config.get_config()
+    old, threads = config.get_config(), torch.get_num_threads()
     config.configure(device="cpu")
+    torch.set_num_threads(1)  # the twins' ops are tiny; test files run side by side
     yield
+    torch.set_num_threads(threads)
     config.set_config(old)
 
 

@@ -2,7 +2,9 @@
 the JAX package's G2 `window_join`, word for word, at the join's edge cases
 (`bench.horner.CASES`; see test_torch_horner.py, which holds the same for
 G1). A file of its own so that a parallel run can give it a worker: each
-JAX G2 join traces and compiles for about a minute on a CPU.
+JAX G2 join traces and compiles for about a minute on a CPU. The cases of
+one window, of c = 1 and of c = 16 (`WINDOW_CASES`) sit in
+test_torch_horner_g2_windows.py, so that two workers share them.
 
 Tolerance 0: exact integer arithmetic. Inputs from numpy seeds.
 """
@@ -28,6 +30,9 @@ def _cpu_device():
     config.set_config(old)
 
 
-@pytest.mark.parametrize("case", list(hbench.CASES))
+WINDOW_CASES = ("w1", "c1", "c16")
+
+
+@pytest.mark.parametrize("case", [c for c in hbench.CASES if c not in WINDOW_CASES])
 def test_horner_join_g2_edge_cases_match_jax(case):
     check_edge_case("g2", case)

@@ -9,7 +9,9 @@ Montgomery words, so the comparison is exact (tolerance 0), limb for limb.
   * the Domain on CPU tensors (the ntt_block route) against JAX's ntt,
     intt, coset_ntt and coset_intt: with BLOCK_MAX_EXP lowered so that the
     four-step composition (e <= 2T) and its recursion (e > 2T) run at
-    e = 5..10, and at e = 13, above the default T = 12;
+    e = 5..10, and at e = 13, above the default T = 12
+    (test_torch_ntt_block_route.py, a file of its own so that a parallel
+    run gives it a worker);
   * inputs 0, 1 and r - 1, and the domains d = 1 and 2;
   * ntt_block calls a transform: at most 1 for e <= T, at most 3 for
     T < e <= 2T, and the scales fused (no other field op);
@@ -36,9 +38,11 @@ from kzg_tpu_torch.ntt import domain as pdomain
 def _cpu_device():
     """The port places tensors on the card by default; these tests run its
     plain twins, so they ask for the CPU."""
-    old = config.get_config()
+    old, threads = config.get_config(), torch.get_num_threads()
     config.configure(device="cpu")
+    torch.set_num_threads(1)  # the twins' ops are tiny; test files run side by side
     yield
+    torch.set_num_threads(threads)
     config.set_config(old)
 
 
@@ -89,21 +93,6 @@ def test_ntt_block_plain_matches_jax_axis2(exp, bt, nb):
         got = cuda_field.ntt_block_plain(x, dom._stage_table(inverse, "cpu"),
                                          post=dinv if inverse else None)
         _same(got, jdom._ntt_axis2(jx, inverse))
-
-
-@pytest.mark.parametrize("exp,block_max", [(5, 2), (6, 3), (7, 2), (8, 4), (9, 3), (10, 5),
-                                           (13, 12)])
-def test_domain_route_matches_jax(monkeypatch, counted, exp, block_max):
-    """The ntt_block route with T = block_max: four-step at e <= 2T (two
-    calls), recursion above (e = 5 at T = 2, 7 at 2, 9 at 3)."""
-    monkeypatch.setattr(pdomain, "BLOCK_MAX_EXP", block_max)
-    dom, jdom = Domain(exp), jdomain.Domain(exp)
-    x, jx = _both(_ints(200 + exp, dom.d), (dom.d,))
-    for f, jf in zip(_transforms(dom), _transforms(jdom)):
-        counted.clear()
-        _same(f(x), jf(jx))
-        if exp <= 2 * block_max:
-            assert len(counted) == 2
 
 
 @pytest.mark.parametrize("exp", [0, 1, 2])

@@ -12,7 +12,9 @@ JAX package and against its own schedule.
     and the pair scan on CPU tensors (the plain version) equal
     `kzg_tpu.fields`' word for word over Fr and Fp;
   * the scan-based `batch_inv` equals `kzg_tpu`'s product-tree batch_inv,
-    zeros interleaved, over Fr, Fp and Fp2, with rows > 1.
+    zeros interleaved, over Fr, Fp and Fp2, with rows > 1
+    (test_torch_scan_inv.py, a file of its own so that a parallel run
+    gives it a worker).
 
 Tolerance 0: all of it is exact integer arithmetic. Inputs from numpy
 seeds. The kernel itself runs on the card in `tests/test_torch_cuda.py`.
@@ -24,10 +26,8 @@ import pytest
 import torch
 
 from kzg_tpu import fields as jf
-from kzg_tpu.curve import FP2A as JFP2
 from kzg_tpu_torch import config
 from kzg_tpu_torch.constants import P, R
-from kzg_tpu_torch.curve import FP2
 from kzg_tpu_torch.fields import FP, FR, cuda_field
 from kzg_tpu_torch.fields.limb import unpack16
 
@@ -137,31 +137,3 @@ def test_scans_match_jax(field, jfield, mod, n):
     got = field.powers(a[..., 0], n)
     _same(got, jfield.prefix_mul(jnp.broadcast_to(ja[..., :1], ja.shape)))
     assert field.decode(got[:, 1]) == [pow(xs[n], i, mod) for i in range(1, n + 1)]
-
-
-@pytest.mark.parametrize("shape", [(1,), (33,), (3, 255), (2, 1000)],
-                         ids=["1", "33", "3x255", "2x1000"])
-@pytest.mark.parametrize("field,jfield,mod", FIELDS, ids=IDS)
-def test_batch_inv_matches_jax(field, jfield, mod, shape):
-    n = int(np.prod(shape))
-    xs = _ints(20 + n, mod, n)
-    xs[n // 2] = 0
-    a = torch.from_numpy(field.encode(xs)).reshape((field.W,) + shape)
-    ja = jnp.asarray(jfield.encode(xs)).reshape((2 * field.W,) + shape)
-    got = field.batch_inv(a)
-    _same(got, jfield.batch_inv(ja))
-    assert field.decode(got) == [pow(x, -1, mod) if x else 0 for x in xs]
-
-
-@pytest.mark.parametrize("shape", [(5,), (3, 33)], ids=["5", "3x33"])
-def test_fp2_batch_inv_matches_jax(shape):
-    n = int(np.prod(shape))
-    c0, c1 = _ints(90 + n, P, n), _ints(91 + n, P, n)
-    c0[1] = c1[1] = 0  # the zero of Fp2
-    c1[2] = 0
-    a = torch.stack([torch.from_numpy(FP.encode(c)) for c in (c0, c1)], dim=1)
-    a = a.reshape((FP.W, 2) + shape)
-    ja = jnp.stack([jnp.asarray(jf.FP.encode(c)) for c in (c0, c1)], axis=1)
-    ja = ja.reshape((2 * FP.W, 2) + shape)
-    got = FP2.batch_inv(a)
-    _same(got, JFP2.batch_inv(ja))
