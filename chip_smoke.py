@@ -98,8 +98,9 @@ non-zero before the result line:
                 seeded numerator f - r divided by a 16-point Z, q Z ==
                 numerator checked at two random points with host ints;
  10. counts   - launch counts of phases 7-9 (reset just before phase 7),
-                every kernel of that path must be > 0, G2 add and dbl in
-                the narrow mode among them, ntt_block > 0 and the per-stage
+                every kernel of that path must be > 0, the G1 and G2
+                ladders (h^Z and g^r) and G2 add in the narrow mode among
+                them, no G2 dbl, ntt_block > 0 and the per-stage
                 ntt_stage = 0 (as on every counted path);
       (the Lagrange build timed group by group, before the next reset:
       one ladder launch a ladder, no stand-alone dbl or madd, one
@@ -121,8 +122,9 @@ non-zero before the result line:
  14. counts   - launch counts of phases 11-13 (reset just before phase 11),
                 every kernel of that path must be > 0 (all but K3 over Fp:
                 its MSMs have 128 buckets a window and take K7; K6,
-                whose madd runs inside the ladder kernel: 0 there; and the
-                per-stage ntt_stage, which must be 0);
+                whose madd runs inside the ladder kernel: 0 there; the
+                pairing kernels, which the host engine's verifies leave to
+                phase 24; and the per-stage ntt_stage, which must be 0);
  15. peaks    - `bench.mul_peak` for Fr and Fp at 2^19 lanes: the k = 65 rate,
                 the marginal rate (launch cost cancelled) and the k = 1 launch
                 beside the rate the kernel report's bound assumes;
@@ -176,6 +178,16 @@ non-zero before the result line:
                 setting of CHUNK_SWEEP, setup seconds and peak memory (equal
                 SRS), commit and witness seconds (median of 3), points/s and
                 the peak device memory above the resident SRS and f;
+ 23b. pairing kernels - not counted: the `miller_loop` kernel (one block
+                a pair) and the `final_exp` kernel (lane mode, and product
+                mode: the Miller values' product first) at 1, 2 and 5 lanes,
+                one lane at infinity (P or Q) but in one of the 1-lane runs,
+                against their plain versions (the tower code over K1 and
+                `field_pow`) word for word and against the oracle's Miller
+                loop and final exponentiation; each timed (CUDA events)
+                with its plain version's time, its bound (the programs'
+                products) and `chain_ms` (its critical path of dependent
+                16-lane products at phase 3's latency);
  24. pairing  - `pairing_device` on two random pairs equal to the oracle's
                 pairing; the device engine against the host engine on phase
                 5's 2^15 single proof, phase 8's batched proof and phase
@@ -184,11 +196,17 @@ non-zero before the result line:
                 infinity): the same verdicts on the true
                 and a tampered claim, each engine's wall (median of 3) and
                 launches by kernel a verify, the device verify's device
-                time by kernel (`torch.profiler`) and idle share;
+                time by kernel (`torch.profiler`) and idle share; every
+                device verify launches miller_loop and final_exp once,
+                `verify_eval` at most 100 counted launches in all, and the
+                batched proof's h^Z and g^r run on the ladder kernel with
+                at most 60 K2 launches on either engine;
  25. counts   - launch counts of phase 23 and of phase 24 (each reset just
-                before it): K1, field_pow, field_scan, fr_horner, K2 (G1 and
-                G2 add and dbl), K3 and K4 > 0 on the 2^24 path; K1,
-                field_pow, field_scan and K2 on the device verifies;
+                before it): K1, field_pow, field_scan, fr_horner, K2 (G1 add
+                and dbl, G2 add), K3, K4, the G1 and G2 ladders and the
+                pairing kernels (its device verify) > 0 on the 2^24 path;
+                miller_loop, final_exp, g1_ladder and g2_ladder on the
+                device verifies, with each proof's launches a verify;
                 ntt_stage 0 on both;
  26. sharded  - `kzg_tpu_torch.parallel` at world 1 on NCCL (a file store
                 under build/): ShardedDomain(2^20)'s ntt, intt, coset_ntt,
@@ -258,7 +276,9 @@ dependent products at W = 26, c = 10 times the 16-lane Fp product's
 latency; the ladders' `chain_ms` is a lane's critical path at c = 4,
 W = 64 at that latency and `throughput_ms` all the lanes' Fp products at
 the rate phase 15 measured; field_pow's `chain_ms` its 381 Fp products at
-that latency; field_scan's and fr_horner's rows carry `k1_chain_ms`, the
+that latency; miller_loop's and final_exp's rows take their times at
+phase 23b's two lanes (final_exp in product mode, the check's shape) and
+carry `chain_ms` and `shapes` (every lane count and mode it timed); field_scan's and fr_horner's rows carry `k1_chain_ms`, the
 K1 chain each replaced, timed in the same run, and `shapes`, each timed
 shape, phase 27's and fr_horner's phase 23 shapes among them), the
 nvidia-smi line, and {"ok": true, "device": {...}}.
@@ -645,7 +665,9 @@ def main(argv=None) -> int:
     from kzg_tpu_torch.ntt import domain as ntt_domain
     from kzg_tpu_torch.oracle import ec_add, ec_neg, g1_generator, g2_generator
     from kzg_tpu_torch.oracle import pairing as oracle_pairing
+    from kzg_tpu_torch.pairing import pairing as pairing_mod
     from kzg_tpu_torch.pairing import pairing_device, tower
+    from kzg_tpu_torch.pairing import schedule as pair_schedule
     from kzg_tpu_torch.poly import Polynomial, lagrange_interpolation, vanishing_poly
     from kzg_tpu_torch.poly import horner as horner_mod
     from kzg_tpu_torch.poly import polynomial as poly_mod
@@ -1621,8 +1643,10 @@ def main(argv=None) -> int:
 
         for k, v in kinfo.items():
             # K2 and K7 logged their modes above and K6 its widths;
-            # ntt_block's row is timed in phase 22, at the paths' shapes
-            if "modes" not in v and "widths" not in v and k != "ntt_block":
+            # ntt_block's row is timed in phase 22, at the paths' shapes, and
+            # the pairing kernels' in phase 23b
+            if ("modes" not in v and "widths" not in v
+                    and k not in ("ntt_block", "miller_loop", "final_exp")):
                 log(f"  {k}: kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.2f} ms, bound "
                     f"{v['bound'][0]:.6f} ms ({v['bound'][1]}) [{card}]")
 
@@ -1821,13 +1845,14 @@ def main(argv=None) -> int:
         counts_batched, modes_batched = kernels.launch_counts(), kernels.mode_counts()
         log(f"  {counts_batched}")
         log(f"  K2 and K7 by mode: {modes_batched}")
-        for k in ("g2_add", "g2_dbl"):  # the batched verify's double-and-add on a few lanes
-            check(modes_batched[k]["narrow"] > 0,
-                  f"{k} took its narrow mode {modes_batched[k]['narrow']} times on the "
-                  "batched path")
+        # h^Z and g^r (17 and 16 points): the digit ladder, its tables on
+        # narrow K2 adds; no G2 doubling is left on the path
+        check(modes_batched["g2_add"]["narrow"] > 0 and counts_batched["g2_dbl"] == 0,
+              f"g2_add took its narrow mode {modes_batched['g2_add']['narrow']} times on the "
+              f"batched path, g2_dbl {counts_batched['g2_dbl']} times")
         for k in ("field_elementwise", "field_scan", "fr_horner", "g1_add", "g1_dbl",
                   "g1_bucket_accumulate", "g1_madd_multi", "g1_horner_join", "ntt_block", "g2_add",
-                  "g2_dbl"):
+                  "g1_ladder", "g2_ladder"):
             check(counts_batched[k] > 0,
                   f"{k} launched {counts_batched[k]} times on the batched path")
         check(counts_batched["ntt_stage"] == 0,
@@ -1997,9 +2022,11 @@ def main(argv=None) -> int:
             # the probe and the matmul-DFT NTT (phases 15-16); K6's madd
             # runs inside the ladder kernel; the evaluation form divides in
             # evaluation form, without fr_horner; its transforms take ntt_block,
-            # never the per-stage K5
+            # never the per-stage K5; its verifiers pair on the host engine
+            # (the pairing kernels run under pairing_engine="device", phase 24)
             check(n_launch > 0 or k in ("g1_bucket_accumulate", "mul_chain", "mxu_reduce",
-                                        "g1_madd", "g2_madd", "fr_horner", "ntt_stage"),
+                                        "g1_madd", "g2_madd", "fr_horner", "ntt_stage",
+                                        "miller_loop", "final_exp"),
                   f"{k} launched {n_launch} times on the G2 MSM and evaluation-form path")
         check(counts_eval["ntt_stage"] == 0,
               "the evaluation-form path transforms on ntt_block, no per-stage K5 launch")
@@ -2547,6 +2574,105 @@ def main(argv=None) -> int:
         report.update(chunk_sweep_2e24=sweep, setup_sweep_2e24=setup_sweep,
                       resident_2e24_mib=resident / 2**20)
 
+    # ---- 23b. the pairing kernels against their plain versions and the oracle, not counted ----
+    with phase("pairing kernels vs plain"):
+        from kzg_tpu_torch.oracle.curve import final_exponentiation
+        from kzg_tpu_torch.oracle.curve import miller_loop as oracle_miller
+        from kzg_tpu_torch.oracle.field import Fp12
+
+        mk, fk = pair_schedule.miller_kernel(), pair_schedule.final_kernel()
+        cols = pair_schedule.hard_columns()
+
+        def crit(k, name):
+            return pair_schedule.critical_products(k.programs[name])
+
+        def prods(k, name):
+            return pair_schedule.products(k.programs[name])
+
+        bits = pair_schedule.LOOP_BITS
+        # one lane's products and critical path: the Miller loop; the final
+        # exponentiation after its product (easy part, table, the ladder)
+        m_prod = (prods(mk, "init") + len(bits) * prods(mk, "tangent")
+                  + sum(bits) * prods(mk, "chord"))
+        m_crit = (crit(mk, "init") + len(bits) * crit(mk, "tangent")
+                  + sum(bits) * crit(mk, "chord") + crit(mk, "conj"))
+        ladder = [("cyc_mul" if c else "cyc") for c in cols[1:]]
+        e_prod = prods(fk, "easy") + prods(fk, "table") + sum(prods(fk, g) for g in ladder)
+        e_crit = crit(fk, "easy") + crit(fk, "table") + sum(crit(fk, g) for g in ladder)
+        lat_ms = latency_us[("Fp", True)] * 1e-3
+        for kname in ("miller_loop", "final_exp"):
+            kinfo[kname].update(max_abs_err=0, shapes={})
+        for n_pair, inf_lane in ((1, None), (1, 0), (2, 1), (5, 3)):
+            ps = [native.g1_mul(g1_generator(), rng.randrange(1, R)) for _ in range(n_pair)]
+            qs = [native.g2_mul(g2_generator(), rng.randrange(1, R)) for _ in range(n_pair)]
+            if inf_lane is not None:  # P at infinity in odd widths, Q in even ones
+                (ps if n_pair % 2 else qs)[inf_lane] = None
+            xp, yp, zp = g1_to_device(ps, dev)
+            xq, yq, zq = g2_to_device(qs, dev)
+            skip = (zp == 0).all(dim=0) | (zq == 0).all(dim=0).all(dim=0)
+            live = n_pair - int(skip.sum())
+            what = f"{n_pair} lanes" + ("" if inf_lane is None else f", lane {inf_lane} infinite")
+            f = pairing_mod.miller_loop_device((xp, yp), (xq, yq), skip)
+            want, m_plain_ms = once_ms(lambda: tower.f12_select(
+                ~skip, pairing_mod.miller_loop_plain((xp, yp), (xq, yq)),
+                tower.f12_one((n_pair,), dev)))
+            m_err = max_abs_diff(f, want)
+            check(m_err == 0, f"miller_loop at {what} equals its plain version")
+            millers = [Fp12.one() if p is None or q is None else oracle_miller(p, q)
+                       for p, q in zip(ps, qs)]
+            check([tower.f12_to_oracle(f[..., i]) for i in range(n_pair)] == millers,
+                  f"miller_loop at {what} equals the oracle's Miller loop")
+            lanes = pairing_mod.final_exp_device(f)
+            want, l_plain_ms = once_ms(lambda: pairing_mod.final_exp_plain(f))
+            l_err = max_abs_diff(lanes, want)
+            check(l_err == 0, f"final_exp (lane mode) at {what} equals its plain version")
+            check([tower.f12_to_oracle(lanes[..., i]) for i in range(n_pair)]
+                  == [final_exponentiation(m) for m in millers],
+                  f"final_exp (lane mode) at {what} equals the oracle's")
+            prod = pairing_mod.final_exp_product(f, skip)
+            want, p_plain_ms = once_ms(lambda: pairing_mod.final_exp_plain(
+                pairing_mod._product_plain(f, skip)))
+            p_err = max_abs_diff(prod, want)
+            check(p_err == 0, f"final_exp (product mode) at {what} equals its plain version")
+            whole = Fp12.one()
+            for m in millers:
+                whole = whole * m
+            check(tower.f12_to_oracle(prod) == final_exponentiation(whole),
+                  f"final_exp (product mode) at {what} equals the oracle's")
+            f12_bytes = 4 * FP.W * 12
+            rows = {
+                ("miller_loop", "lane"): (
+                    lambda: pairing_mod.miller_loop_device((xp, yp), (xq, yq), skip), m_plain_ms,
+                    m_err, bound(n_pair * (4 * FP.W * 6 + 1 + f12_bytes),
+                                 live * m_prod * FP_MUL_MADS), m_crit),
+                ("final_exp", "lane"): (
+                    lambda: pairing_mod.final_exp_device(f), l_plain_ms, l_err,
+                    bound(2 * n_pair * f12_bytes, n_pair * e_prod * FP_MUL_MADS), e_crit),
+                ("final_exp", "product"): (
+                    lambda: pairing_mod.final_exp_product(f, skip), p_plain_ms, p_err,
+                    bound((n_pair + 1) * f12_bytes + n_pair,
+                          (max(live - 1, 0) * prods(fk, "mul") + e_prod) * FP_MUL_MADS),
+                    max(live - 1, 0) * crit(fk, "mul") + e_crit),
+            }
+            for (kname, mode), (fn, plain_ms, err, b, chain) in rows.items():
+                ms = cuda_ms(fn, 3)
+                key = what if kname == "miller_loop" else f"{mode} mode, {what}"
+                kinfo[kname]["shapes"][key] = {
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+                    "chain_ms": chain * lat_ms, "max_abs_err": err}
+                kinfo[kname]["max_abs_err"] = max(kinfo[kname]["max_abs_err"], err)
+                log(f"  {kname} {key}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, chain "
+                    f"{chain * lat_ms:.4f} ms ({chain} dependent 16-lane products), bound "
+                    f"{b[0]:.6f} ms ({b[1]}) [{card}]")
+        # the report's rows: the check's shape, two lanes, product mode
+        for kname, key in (("miller_loop", "2 lanes, lane 1 infinite"),
+                           ("final_exp", "product mode, 2 lanes, lane 1 infinite")):
+            ref = kinfo[kname]["shapes"][key]
+            kinfo[kname].update(ms=ref["ms"], plain_ms=ref["plain_ms"], chain_ms=ref["chain_ms"],
+                                bound=(ref["bound_ms"], ref["bound_by"]))
+        report.update(miller_loop_ms=kinfo["miller_loop"]["ms"],
+                      final_exp_ms=kinfo["final_exp"]["ms"])
+
     # ---- 24. the device pairing engine against the host engine, counted ------------------------
     kernels.reset_launches()
 
@@ -2594,6 +2720,21 @@ def main(argv=None) -> int:
             check(row["device_verdicts"] == row["host_verdicts"] == [True, False],
                   f"{name}: the device engine's verdicts {row['device_verdicts']} equal the host "
                   f"engine's {row['host_verdicts']} (true claim, tampered claim)")
+            dl = row["device_launches"]
+            check(dl.get("miller_loop") == 1 and dl.get("final_exp") == 1,
+                  f"{name}: one miller_loop and one final_exp launch a device verify")
+            row["device_launches_total"] = sum(dl.values())
+            if name.startswith(("single", "evaluation form 2^")) and "all points" not in name:
+                check(row["device_launches_total"] <= 100,
+                      f"{name}: {row['device_launches_total']} counted launches a device "
+                      "verify (at most 100)")
+            if name.startswith("batched"):  # h^Z and g^r: 17 and 16 points, the digit ladder
+                for engine in ("host", "device"):
+                    el = row[f"{engine}_launches"]
+                    k2 = sum(el.get(k, 0) for k in ("g1_add", "g1_dbl", "g2_add", "g2_dbl"))
+                    check(el.get("g1_ladder", 0) > 0 and el.get("g2_ladder", 0) > 0 and k2 <= 60,
+                          f"{name}, {engine} engine: h^Z and g^r on the ladder kernel, {k2} K2 "
+                          "launches (at most 60)")
             row["device_busy_ms"], top = device_ms(lambda: claim(v, True))
             row["device_ms_by_kernel"] = dict(top)
             row["device_idle_share"] = max(0.0, 1.0 - row["device_busy_ms"]
@@ -2615,14 +2756,17 @@ def main(argv=None) -> int:
         for what, run, must in (
                 (f"the 2^{EXP_BIG} path", counts_big24,
                  ("field_elementwise", "field_pow", "field_scan", "fr_horner", "g1_add", "g1_dbl",
-                  "g2_add", "g2_dbl", "g1_bucket_accumulate", "g1_horner_join")),
+                  "g2_add", "g1_bucket_accumulate", "g1_horner_join", "g1_ladder", "g2_ladder",
+                  "miller_loop", "final_exp")),
                 ("the device verifies", counts_pair,
-                 ("field_elementwise", "field_pow", "field_scan", "g1_add", "g1_dbl", "g2_add",
-                  "g2_dbl"))):
+                 ("miller_loop", "final_exp", "g1_ladder", "g2_ladder"))):
             log(f"  {what}: {run}")
             for k in must:
                 check(run[k] > 0, f"{k} launched {run[k]} times on {what}")
             check(run["ntt_stage"] == 0, f"no per-stage K5 launch on {what}")
+        for row in pairing_rows:
+            log(f"  {row['proof']}: {row['device_launches_total']} counted launches a device "
+                f"verify: {row['device_launches']}")
         log(f"  K2 and K7 by mode: 2^{EXP_BIG} {modes_big24}; device verifies {modes_pair}")
         runs = (counts_single, counts_batched, counts_eval, counts_big, counts_lag, counts_big24,
                 counts_pair)

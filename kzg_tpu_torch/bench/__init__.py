@@ -4,7 +4,7 @@ groups (`harness`: `python -m kzg_tpu_torch.bench.harness`) and the
 multi-device MSM scaling sweep (`scaling`: `python -m
 kzg_tpu_torch.bench.scaling`), as in `kzg_tpu/bench/`, plus the kernel
 benches of the port's redesigns (`horner`, `ladder`, `madd_multi`, `ntt`,
-`pointwise`, `paths`, `runs_sweep`). The two entry points import their
+`pairing`, `pointwise`, `paths`, `runs_sweep`). The two entry points import their
 module when called, so `python -m` runs either module once."""
 
 from .peaks import MulPeak, mul_peak

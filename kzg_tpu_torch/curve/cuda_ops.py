@@ -172,7 +172,7 @@ def _is_cpu(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return True
     if t.device.type != "cuda":
-        raise kernels.KernelError(f"no point kernel for device {t.device}")
+        raise kernels.KernelError(f"no kernel for device {t.device}")
     return False
 
 

@@ -260,18 +260,27 @@ class CurveOps:
         return self.ladder_rounds(tx, ty, p_inf, digits, c)
 
     def ladder_table(self, p, c: int):
-        """The ladder's table: the multiples 1 .. 2^c - 1 of p (one `add` per
-        entry, stacked on a table axis after the word axes), normalised with
-        one batched `to_affine`. Returns (tx, ty) of shape (W[, 2], T, *batch)
+        """The ladder's table: the multiples 1 .. 2^c - 1 of p, stacked on a
+        table axis after the word axes, normalised with one batched
+        `to_affine`. They come by doubling blocks: from the multiples 1 .. N,
+        one batched `add` of N p to each gives N + 1 .. 2N (2N = N + N
+        through the add's doubling case), so c launches build the table
+        (the reference adds p once an entry, 2^c - 2 launches; the affine
+        words are the same). Returns (tx, ty) of shape (W[, 2], T, *batch)
         and p's infinity mask."""
         if c < 1:
             raise ValueError("window must be >= 1")
         bd = self.f.bdim
-        multiples = [p]
-        for _ in range((1 << c) - 2):
-            multiples.append(self.add(multiples[-1], p))
-        stacked = tuple(torch.stack([m[i] for m in multiples], dim=bd) for i in range(3))
-        tx, ty, _ = self.to_affine(stacked)
+        t_count = (1 << c) - 1
+        table = tuple(t.unsqueeze(bd) for t in p)  # multiples 1 .. N
+        while table[0].shape[bd] < t_count:
+            n = table[0].shape[bd]
+            k = min(n, t_count - n)
+            top = tuple(t.narrow(bd, n - 1, 1).expand(t.shape[:bd] + (k,) + t.shape[bd + 1:])
+                        for t in table)
+            new = self.add(top, tuple(t.narrow(bd, 0, k) for t in table))
+            table = tuple(torch.cat([t, u], dim=bd) for t, u in zip(table, new))
+        tx, ty, _ = self.to_affine(table)
         return tx, ty, self.is_inf(p)
 
     def ladder_rounds(self, tx, ty, p_inf, digits, c: int):

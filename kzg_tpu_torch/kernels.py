@@ -17,6 +17,8 @@ count its launches apart. K6's `madd` is K7's narrow entry at S = 1 with a
 record and a count of its own. K5 has two entries with a record each:
 `ntt_block` (whole sub-transforms a launch, the Domain's route on the card)
 and `ntt_stage` (one butterfly stage a launch, the route as it was).
+`miller_loop` and `final_exp` replace no Pallas kernel but the reference's
+K1 chains of the pairing; `replaces` names those.
 """
 
 import ctypes
@@ -37,10 +39,10 @@ BUILD_ROOT = _PKG.parent / "build" / "kzg_tpu_torch"
 SOURCES = ("field_kernels.cu", "point_kernels.cu", "ntt_kernels.cu",
            "point_g2_kernels.cu", "madd_multi_g2_kernels.cu",
            "msm_g2_kernels.cu", "horner_g2_kernels.cu", "mxu_kernels.cu", "ladder_kernels.cu",
-           "pointwise_g2_kernels.cu", "scan_kernels.cu")
+           "pointwise_g2_kernels.cu", "scan_kernels.cu", "pairing_kernels.cu")
 HEADERS = ("field.cuh", "point.cuh", "coop.cuh", "horner.cuh", "horner_schedule.cuh",
            "pair.cuh", "ladder.cuh", "pointwise.cuh", "madd_multi.cuh", "scan.cuh",
-           "ntt_block.cuh")
+           "ntt_block.cuh", "pairing.cuh", "pairing_schedule.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -139,6 +141,12 @@ REGISTRY = {
         # the K1 chain of the linear division and the evaluation, a few tile passes
         Kernel("fr_horner", "kzg_tpu_torch/csrc/scan_kernels.cu",
                "kzg_tpu/fields/pallas_field.py:295"),
+        # no Pallas kernel: the K1 chains of the reference's Miller loop and
+        # final exponentiation, one launch each (pairing.cuh)
+        Kernel("miller_loop", "kzg_tpu_torch/csrc/pairing_kernels.cu",
+               "kzg_tpu/pairing/pairing.py:109"),
+        Kernel("final_exp", "kzg_tpu_torch/csrc/pairing_kernels.cu",
+               "kzg_tpu/pairing/pairing.py:163"),
     )
 }
 
@@ -275,6 +283,10 @@ _SIGNATURES = {
     "kzg_field_scan": (_I, _I, _P, _P, _N, _N, _N, _P, _P, _N, _I, _I, _P),
     # (q, rem, totals, xpow, f, f word / row strides, x, carry in, tile carry, n, k, stream)
     "kzg_fr_horner": (_P,) * 5 + (_N, _N) + (_P,) * 3 + (_N, _I, _P),
+    # (out, xp, yp, xq, yq, skip bytes or null, constants, n, stream)
+    "kzg_miller_loop": (_P,) * 7 + (_N, _P),
+    # (out, f, skip bytes or null, bit columns, columns, constants, n, product, stream)
+    "kzg_final_exp": (_P,) * 4 + (_I, _P, _N, _I, _P),
 }
 
 

@@ -4,24 +4,27 @@
 The host engines read four small points off the device and pair them on
 the host (`hostcrypto.multi_pairing_check`). With
 `config.pairing_engine = "device"` the verifiers come here instead: the
-scalar multiplications x h and y g (`CurveOps.scalar_mul_bits`, K2), the
-affine conversions (`to_affine`: `field_scan`, `field_pow`, K1), both Miller
-loops in lanes and the one final exponentiation (`pairing/`, K1 and
-`field_pow`) all run on the device, and a verify reads one boolean.
+scalar multiplications x h and y g (`CurveOps.scalar_mul_digits`: a table of
+15 multiples on K2, then one digit-ladder launch each; the reference runs
+`scalar_mul_bits`, the same points in affine), the affine conversions
+(`to_affine`: `field_scan`, `field_pow`, K1), both Miller loops in lanes
+(one `miller_loop` launch) and the one final exponentiation (one
+`final_exp` launch, the Miller values' product inside) all run on the
+device, and a verify reads one boolean.
 """
 
 import torch
 
 from ..curve import G1, G2
+from ..msm.pippenger import SMALL_MSM_WINDOW, _host_digits_msb
 from ..pairing.pairing import pairing_check_device
 
-SCALAR_BITS = 255  # r < 2^255
 
-
-def _scalar_bits(k: int, device) -> torch.Tensor:
-    """(255, 1) 0/1 rows of the host int k, LSB first, on `device`."""
-    return torch.tensor([(k >> i) & 1 for i in range(SCALAR_BITS)], dtype=torch.int32,
-                        device=device)[:, None]
+def _mul(curve, p, k: int):
+    """k p for a host int k in [0, r) and a batch-(1,) Jacobian point p."""
+    c = SMALL_MSM_WINDOW
+    digits = torch.tensor(_host_digits_msb(k, c), dtype=torch.int64, device=p[0].device)
+    return curve.scalar_mul_digits(p, digits[:, None], c)
 
 
 def _expand1(p):
@@ -48,11 +51,10 @@ def _check(a0, a1, b0, h) -> bool:
 def verify_eval_device(params, x: int, y: int, commitment, witness) -> bool:
     """e(w, h^s - x h) e(y g - C, h) == 1 on the device, for host ints x, y
     reduced mod r and Jacobian device points C, w."""
-    dev = params.gs[0].device
     h = _affine1(params.hs, 0)
-    xh = G2.scalar_mul_bits(G2.from_affine(*h), _scalar_bits(x, dev))
+    xh = _mul(G2, G2.from_affine(*h), x)
     s2 = G2.add(G2.from_affine(*_affine1(params.hs, 1)), G2.neg(xh))  # h^(s - x)
-    yg = G1.scalar_mul_bits(G1.from_affine(*_affine1(params.gs, 0)), _scalar_bits(y, dev))
+    yg = _mul(G1, G1.from_affine(*_affine1(params.gs, 0)), y)
     r1 = G1.add(yg, G1.neg(_expand1(commitment)))  # y g - C
     return _check(_expand1(witness), r1, s2, h)
 

@@ -32,7 +32,7 @@ from ..curve import G1, G2, g1_from_device, g1_to_device, g2_from_device, g2_to_
 from ..fields import FR
 from ..hostcrypto import multi_pairing_check
 from ..msm import msm_g1, msm_g2
-from ..msm.pippenger import _digits
+from ..msm.pippenger import _digits, _host_digits_msb, _std_digits_msb
 from ..ntt import Domain
 from ..ntt.domain import compute_omega
 from ..oracle import ec_add, ec_mul, ec_neg
@@ -98,32 +98,6 @@ class KZGBatchWitnessEvalForm:
 # --------------------------------------------------------------------------
 # Lagrange SRS construction
 # --------------------------------------------------------------------------
-
-
-def _host_digits_msb(value: int, c: int, nbits: int = 255) -> list:
-    """MSB-first base-2^c digits of a host int (width ceil(nbits/c))."""
-    w_count = -(-nbits // c)
-    mask = (1 << c) - 1
-    return [(value >> (c * w)) & mask for w in range(w_count - 1, -1, -1)]
-
-
-def _std_digits_msb(std: torch.Tensor, c: int, w_count: int) -> torch.Tensor:
-    """MSB-first base-2^c digit rows (w_count, n) int64 from (8, n)
-    standard-form 32-bit scalar words. The reference reads 16-bit limbs
-    (`eval_form.py:90-102`); the digits are the same integers' windows.
-    Unlike `msm.pippenger._digits` this is MSB first with
-    w_count = ceil(255 / c) windows, which is what the digit ladder takes."""
-    words = std.to(torch.int64) & 0xFFFFFFFF
-    mask = (1 << c) - 1
-    rows = []
-    for w in range(w_count - 1, -1, -1):
-        bit = w * c
-        word, off = bit // 32, bit % 32
-        row = words[word] >> off
-        if off + c > 32 and word + 1 < FR.W:
-            row = row | (words[word + 1] << (32 - off))
-        rows.append(row & mask)
-    return torch.stack(rows)
 
 
 def _group_intt(curve, points, dom: Domain, force_split: bool = False):

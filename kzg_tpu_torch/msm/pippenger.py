@@ -38,8 +38,10 @@ Deviations from the reference:
     both routes, so there is no second path to switch to. The sub-runs are
     ranked longest first, so the threads of a warp run equal trip counts:
     the reference's occupancy ranking (`:529-540`), done for warps.
-Below small_msm_threshold points a batched double-and-add ladder on K2 plus
-a tree sum is used (`_msm_small`), as in the reference. Above
+Below small_msm_threshold points every point is multiplied by its own
+scalar with the batched digit ladder (a table on K2, the rounds in one
+ladder launch) and the products summed by a tree on K2 (`_msm_small`); the
+reference runs a double-and-add ladder there, the same point. Above
 2^msm_chunk_log points an MSM runs as one MSM a chunk of 2^msm_chunk_log
 points, each with its own window, the Jacobian partials summed by K2
 `add` (the reference's `:818-833`): the digits, sort and row table are one
@@ -59,6 +61,12 @@ import torch
 from ..config import get_config
 from ..curve import G1, G2, cuda_ops
 from ..fields import FR
+
+
+# the digit ladder's window below small_msm_threshold points and in the
+# device verify's scalar multiplications (PERF.md §6 row 8b measured the
+# ladder at c = 4)
+SMALL_MSM_WINDOW = 4
 
 
 def pick_window(n: int) -> int:
@@ -102,11 +110,30 @@ def _digits(scalars_std: torch.Tensor, c: int) -> torch.Tensor:
     return torch.stack(rows)
 
 
-def _scalar_bits(scalars_std: torch.Tensor) -> torch.Tensor:
-    """(256, N) 0/1 rows, LSB first."""
-    words = _std_words64(scalars_std)
-    shifts = torch.arange(32, device=words.device)
-    return ((words[:, None, :] >> shifts[None, :, None]) & 1).reshape(-1, words.shape[-1])
+def _std_digits_msb(std: torch.Tensor, c: int, w_count: int) -> torch.Tensor:
+    """MSB-first base-2^c digit rows (w_count, n) int64 from (8, n)
+    standard-form 32-bit scalar words. The reference reads 16-bit limbs
+    (`kzg_tpu/kzg/eval_form.py:90-102`); the digits are the same integers'
+    windows. Unlike `_digits` this is MSB first, the order the digit ladder
+    (`CurveOps.scalar_mul_digits`) takes."""
+    words = _std_words64(std)
+    mask = (1 << c) - 1
+    rows = []
+    for w in range(w_count - 1, -1, -1):
+        bit = w * c
+        word, off = bit // 32, bit % 32
+        row = words[word] >> off
+        if off + c > 32 and word + 1 < FR.W:
+            row = row | (words[word + 1] << (32 - off))
+        rows.append(row & mask)
+    return torch.stack(rows)
+
+
+def _host_digits_msb(value: int, c: int, nbits: int = 255) -> list:
+    """MSB-first base-2^c digits of a host int (width ceil(nbits/c))."""
+    w_count = -(-nbits // c)
+    mask = (1 << c) - 1
+    return [(value >> (c * w)) & mask for w in range(w_count - 1, -1, -1)]
 
 
 def point_sum(curve, p):
@@ -158,10 +185,15 @@ def weighted_bucket_sum(curve, buckets):
 
 def _msm_small(curve, xa, ya, inf, scalars_std):
     """Small batches: every point times its own scalar with one batched
-    double-and-add ladder, then a tree sum."""
-    bits = _scalar_bits(scalars_std)
+    digit ladder (`CurveOps.scalar_mul_digits` at c = SMALL_MSM_WINDOW over
+    all 256 bits of the words: a table of 2^c - 1 multiples, then one
+    ladder launch on a card), then a tree sum. The reference runs
+    `scalar_mul_bits` (`kzg_tpu/msm/pippenger.py:80-87`); the sum is the
+    same point."""
+    c = SMALL_MSM_WINDOW
+    digits = _std_digits_msb(scalars_std, c, -(-32 * FR.W // c))
     base = curve.select(inf, curve.infinity(inf.shape, xa.device), curve.from_affine(xa, ya))
-    return point_sum(curve, curve.scalar_mul_bits(base, bits))
+    return point_sum(curve, curve.scalar_mul_digits(base, digits, c))
 
 
 def bucket_inputs(xa, ya, inf, scalars_std, c: int):

@@ -5,22 +5,34 @@ Structure of the oracle (`oracle/curve.py`): untwist G2 to E(Fp12), the
 affine Miller loop f_{|x|,Q}(P) with the BLS x < 0 conjugation, then the
 final exponentiation (the easy part by conjugation, inverse and Frobenius,
 the hard part by the base-p decomposition of (p^4 - p^2 + 1) / r and one
-joint ladder of cyclotomic squarings). Every tower operation is tensor
-code over K1 and `field_pow` (`pairing/tower.py`); there is no kernel of
-its own (the reference's module has no `pallas_call`).
+joint ladder of cyclotomic squarings).
+
+On a CUDA tensor the loop and the exponentiation are one launch each: the
+`miller_loop` kernel (one block a pair) and the `final_exp` kernel (one
+block an output; in product mode it first multiplies the Miller values of
+its input together), `csrc/pairing.cuh`, running the programs that
+`pairing/schedule.py` generates from the same formulas. On a CPU tensor
+they are the plain versions, `miller_loop_plain` and `final_exp_plain`:
+tensor code over the tower (`pairing/tower.py`: K1's and `field_pow`'s
+plain twins), which on a card is the kernels' twin in the tests and the
+smoke and nothing else.
 
 The loop bits of |x| are a constant of the curve, so a Python branch on
 each bit is the same function as the reference's select (`:124-140`) and
 skips the chord step where the bit is 0. Everything is batched on the last
 axis: `pairing_check_device` runs all Miller loops in lanes, multiplies
 them together and shares one final exponentiation. Points at infinity
-contribute 1 (the reference's select; the loop runs on their words and its
-value is dropped).
+contribute 1 (the reference's select; the kernel skips their loop, the
+plain version runs it on their words and drops its value).
 """
+
+import math
 
 import torch
 
+from .. import kernels
 from ..constants import BLS_X, P, R
+from ..curve import cuda_ops
 from ..fields import FP
 from . import tower as tw
 
@@ -97,10 +109,12 @@ def _line_step(f, t, p, q=None):
     return pr[:, :, 0], (x3, FP.sub(pr[:, :, 1], yt))
 
 
-def miller_loop_device(p_aff, q_aff):
-    """f_{|x|,Q}(P), conjugated for x < 0. p_aff = (xp, yp) Fp coordinates
-    (12, *batch); q_aff = (xq, yq) Fp2 coordinates (12, 2, *batch). Points
-    must not be infinity (callers select those lanes away)."""
+def miller_loop_plain(p_aff, q_aff):
+    """Plain version of the `miller_loop` kernel: f_{|x|,Q}(P), conjugated
+    for x < 0, as tensor code over the tower. p_aff = (xp, yp) Fp
+    coordinates (12, *batch); q_aff = (xq, yq) Fp2 coordinates (12, 2,
+    *batch). Points must not be infinity (callers select those lanes
+    away)."""
     q = untwist_device(*q_aff)
     p = (_fp_to_f12(p_aff[0]), _fp_to_f12(p_aff[1]))
     f = tw.f12_one(tuple(p_aff[0].shape[1:]), p_aff[0].device)
@@ -136,11 +150,127 @@ def final_exp_easy(f):
     return tw.f12_mul(tw.f12_frobenius(tw.f12_frobenius(f)), f)  # ^(p^2 + 1)
 
 
-def final_exp_device(f):
-    """f^((p^12 - 1) / r): the easy part, then the hard part by the base-p
-    Frobenius decomposition and the joint ladder with Granger-Scott
-    cyclotomic squarings."""
+def final_exp_plain(f):
+    """Plain version of the `final_exp` kernel: f^((p^12 - 1) / r), the easy
+    part, then the hard part by the base-p Frobenius decomposition and the
+    joint ladder with Granger-Scott cyclotomic squarings."""
     return tw.f12_joint_pow_frobenius(final_exp_easy(f), HARD_BASE_P)
+
+
+def _product_plain(f, skip):
+    """prod over the last axis of (12, 12, n), lanes under skip contributing
+    1: a pairwise product tree."""
+    if skip is not None:
+        f = tw.f12_select(~skip, f, tw.f12_one(tuple(f.shape[2:]), f.device))
+    while f.shape[-1] > 1:
+        half = f.shape[-1] // 2
+        prod = tw.f12_mul(f[..., :half], f[..., half:2 * half])
+        f = torch.cat([prod, f[..., 2 * half:]], dim=-1)
+    return f[..., 0]
+
+
+# ---------------------------------------------------------------------------
+# the kernels' wrappers
+# ---------------------------------------------------------------------------
+
+_MILLER = kernels.REGISTRY["miller_loop"]
+_FINAL = kernels.REGISTRY["final_exp"]
+_KERNEL_INPUTS = {}
+
+
+def kernel_inputs(device):
+    """The kernels' constant inputs on `device`, built once: the Miller and
+    final-exponentiation programs' constants ((12, k) Montgomery words, the
+    order of `schedule.miller_layout()` / `final_layout()`) and the joint
+    ladder's bit columns of HARD_BASE_P (uint8, MSB first)."""
+    key = str(device)
+    if key not in _KERNEL_INPUTS:
+        from . import schedule
+
+        def words(layout):
+            return torch.from_numpy(FP.encode(layout.consts)).to(device).contiguous()
+
+        cols = schedule.hard_columns()
+        if cols[0] == 0:
+            raise ArithmeticError("the hard exponent's top bit column is empty")
+        _KERNEL_INPUTS[key] = (words(schedule.miller_layout()), words(schedule.final_layout()),
+                               torch.tensor(cols, dtype=torch.uint8, device=device))
+    return _KERNEL_INPUTS[key]
+
+
+def _skip_bytes(skip, batch, dev, what):
+    if skip is None:
+        return None
+    if skip.dtype != torch.bool or skip.device != dev or tuple(skip.shape) != batch:
+        raise kernels.KernelError(f"{what}: skip must be bool {batch} on {dev}")
+    return skip.reshape(-1).contiguous().view(torch.uint8)
+
+
+def miller_loop_device(p_aff, q_aff, skip=None):
+    """f_{|x|,Q}(P), conjugated for x < 0, for affine batches p_aff = (xp,
+    yp) of Fp coordinates (12, *batch) and q_aff = (xq, yq) of Fp2
+    coordinates (12, 2, *batch): (12, 12, *batch). Lanes under `skip` (bool
+    (*batch), the pairs with a point at infinity) give Fp12 one. One launch
+    of the `miller_loop` kernel on a CUDA tensor, the plain version on a
+    CPU tensor."""
+    xp, yp = p_aff
+    xq, yq = q_aff
+    batch = tuple(xp.shape[1:])
+    if cuda_ops._is_cpu(xp):
+        f = miller_loop_plain(p_aff, q_aff)
+        return f if skip is None else tw.f12_select(~skip, f, tw.f12_one(batch, xp.device))
+    dev, n, w = xp.device, math.prod(batch), FP.W
+    ops = ([cuda_ops._coord(t, dev, n, "miller_loop") for t in (xp, yp)]
+           + [cuda_ops._coord(t, dev, n, "miller_loop", (w, 2)) for t in (xq, yq)])
+    mask = _skip_bytes(skip, batch, dev, "miller_loop")
+    out = torch.empty((w, 12, n), dtype=torch.int32, device=dev)
+    if n:
+        consts = kernel_inputs(dev)[0]
+        rc = kernels.library().kzg_miller_loop(
+            out.data_ptr(), *(t.data_ptr() for t in ops),
+            None if mask is None else mask.data_ptr(), consts.data_ptr(), n,
+            kernels.stream_handle(dev))
+        kernels.check_status(rc, "miller_loop")
+        _MILLER.count()
+    return out.reshape((w, 12) + batch)
+
+
+def _final_exp(f, skip, product):
+    batch = tuple(f.shape[2:])
+    dev, n, w = f.device, math.prod(batch), FP.W
+    flat = cuda_ops._coord(f, dev, n, "final_exp", (w, 12))
+    mask = _skip_bytes(skip, batch, dev, "final_exp")
+    out = torch.empty((w, 12, 1 if product else n), dtype=torch.int32, device=dev)
+    if n:
+        _, consts, cols = kernel_inputs(dev)
+        rc = kernels.library().kzg_final_exp(
+            out.data_ptr(), flat.data_ptr(), None if mask is None else mask.data_ptr(),
+            cols.data_ptr(), cols.numel(), consts.data_ptr(), n, int(product),
+            kernels.stream_handle(dev))
+        kernels.check_status(rc, "final_exp")
+        _FINAL.count()
+    elif product:
+        out = tw.f12_one((1,), dev)
+    return out[..., 0] if product else out.reshape((w, 12) + batch)
+
+
+def final_exp_device(f):
+    """f^((p^12 - 1) / r) of every lane of f (12, 12, *batch): one launch of
+    the `final_exp` kernel, a block a lane, on a CUDA tensor; the plain
+    version on a CPU tensor."""
+    if cuda_ops._is_cpu(f):
+        return final_exp_plain(f)
+    return _final_exp(f, None, False)
+
+
+def final_exp_product(f, skip=None):
+    """(prod_i f_i)^((p^12 - 1) / r) over the last axis of f (12, 12, n),
+    the lanes under `skip` (bool (n,)) contributing 1: one (12, 12) Gt
+    element. One launch of the `final_exp` kernel in product mode on a CUDA
+    tensor; on a CPU tensor a pairwise product tree and the plain version."""
+    if cuda_ops._is_cpu(f):
+        return final_exp_plain(_product_plain(f, skip))
+    return _final_exp(f, skip, True)
 
 
 # ---------------------------------------------------------------------------
@@ -150,15 +280,11 @@ def final_exp_device(f):
 
 def _pairing_product(xp, yp, p_inf, xq, yq, q_inf):
     """prod_i e(P_i, Q_i) over the last axis, infinity pairs contributing
-    1: every Miller loop in lanes, a pairwise product tree, one final
-    exponentiation. Returns one (12, 12) Gt element."""
-    f = miller_loop_device((xp, yp), (xq, yq))
-    f = tw.f12_select(~(p_inf | q_inf), f, tw.f12_one(tuple(f.shape[2:]), f.device))
-    while f.shape[-1] > 1:
-        half = f.shape[-1] // 2
-        prod = tw.f12_mul(f[..., :half], f[..., half:2 * half])
-        f = torch.cat([prod, f[..., 2 * half:]], dim=-1)
-    return final_exp_device(f[..., 0])
+    1: every Miller loop in lanes, their product and one final
+    exponentiation (two launches on a card). Returns one (12, 12) Gt
+    element."""
+    skip = p_inf | q_inf
+    return final_exp_product(miller_loop_device((xp, yp), (xq, yq), skip), skip)
 
 
 def pairing_check_device(g1_points, g2_points) -> bool:
@@ -177,5 +303,6 @@ def pairing_device(p_aff, q_aff):
     return final_exp_device(miller_loop_device(p_aff, q_aff))
 
 
-__all__ = ["miller_loop_device", "final_exp_device", "final_exp_easy", "pairing_device",
-           "pairing_check_device", "untwist_device"]
+__all__ = ["miller_loop_device", "miller_loop_plain", "final_exp_device", "final_exp_plain",
+           "final_exp_product", "final_exp_easy", "pairing_device", "pairing_check_device",
+           "untwist_device", "kernel_inputs"]

@@ -18,7 +18,11 @@ is one), K6 (K7's narrow kernel at S = 1); the matmul-DFT NTT (neither K5 entry 
 kernel build fails. The 2^24 path's streamed pieces at 2^12 with lowered
 chunk logs (the streamed witness, the chunked division and MSM against
 their one-shot forms), and the device pairing against the oracle and its
-engine against the host engine. The sharded layer at world 1 on NCCL in
+engine against the host engine; the pairing kernels (`miller_loop`,
+`final_exp` in lane and product mode) against their plain versions at 1,
+2 and 5 lanes with a lane at infinity, their refusal to fall back, the
+small MSM on the digit ladder at 1, 3 and 17 points, and the launches of
+a device verify. The sharded layer at world 1 on NCCL in
 this process (`kzg_tpu_torch.parallel`): every sharded transform against
 `Domain`, the sharded G1 and G2 MSMs against `msm`, and the three steps
 against the one-device provers, at 2^10.
@@ -971,6 +975,141 @@ def test_device_pairing_and_engine_on_the_card(dev):
         assert e_device.verify_eval_all(ec, bw_all) == e_host.verify_eval_all(ec, bw_all)
     assert e_device.verify_eval_all(ec, KZGBatchWitnessEvalForm(r=evals, w=ew))
     assert not e_device.verify_eval_all(ec, KZGBatchWitnessEvalForm(r=tampered, w=ew))
+
+
+def _pairs(dev, n, seed, inf_lane=None):
+    """n random (P, Q) pairs as affine words, lane inf_lane with P (odd n)
+    or Q (even n) at infinity, and the lanes to skip."""
+    from kzg_tpu_torch.curve import g1_to_device, g2_to_device
+    from kzg_tpu_torch.oracle import g1_generator, g2_generator
+
+    rs = np.random.default_rng(seed)
+    ps = [native.g1_mul(g1_generator(), int.from_bytes(rs.bytes(32), "little") % R)
+          for _ in range(n)]
+    qs = [native.g2_mul(g2_generator(), int.from_bytes(rs.bytes(32), "little") % R)
+          for _ in range(n)]
+    if inf_lane is not None:
+        (ps if n % 2 else qs)[inf_lane] = None
+    xp, yp, zp = g1_to_device(ps, dev)
+    xq, yq, zq = g2_to_device(qs, dev)
+    skip = (zp == 0).all(dim=0) | (zq == 0).all(dim=0).all(dim=0)
+    return (xp, yp), (xq, yq), skip
+
+
+@pytest.mark.parametrize("n,inf_lane", [(1, None), (1, 0), (2, 1), (5, 3)])
+def test_pairing_kernels_match_plain(dev, n, inf_lane):
+    """The miller_loop kernel and the final_exp kernel in lane and product
+    mode against their plain versions (the tower code over K1 and
+    field_pow) word for word, one launch each, a lane at infinity giving
+    Fp12 one."""
+    from kzg_tpu_torch.pairing import pairing as pm
+    from kzg_tpu_torch.pairing import tower as tw
+
+    p_aff, q_aff, skip = _pairs(dev, n, 60 + n, inf_lane)
+    kernels.reset_launches()
+    f = pm.miller_loop_device(p_aff, q_aff, skip)
+    lanes = pm.final_exp_device(f)
+    prod = pm.final_exp_product(f, skip)
+    counts = kernels.launch_counts()
+    assert counts["miller_loop"] == 1 and counts["final_exp"] == 2
+    want = tw.f12_select(~skip, pm.miller_loop_plain(p_aff, q_aff), tw.f12_one((n,), dev))
+    assert _equal(f, want)
+    assert tw.f12_is_one(f).tolist() == skip.tolist()
+    assert _equal(lanes, pm.final_exp_plain(f))
+    assert _equal(prod, pm.final_exp_plain(pm._product_plain(f, skip)))
+
+
+def test_pairing_kernels_never_fall_back(dev, monkeypatch):
+    """On CUDA tensors the pairing's entry points reach the kernels or
+    raise: a failed build raises KernelError, no tower code runs."""
+    from kzg_tpu_torch.pairing import pairing as pm
+
+    def failed_build():
+        raise kernels.KernelError("build failed")
+
+    def plain(*args):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    p_aff, q_aff, skip = _pairs(dev, 2, 3)
+    monkeypatch.setattr(kernels, "_lib", None)
+    monkeypatch.setattr(kernels, "build", failed_build)
+    monkeypatch.setattr(pm, "miller_loop_plain", plain)
+    monkeypatch.setattr(pm, "final_exp_plain", plain)
+    f = torch.zeros((12, 12, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(kernels.KernelError):
+        pm.miller_loop_device(p_aff, q_aff, skip)
+    with pytest.raises(kernels.KernelError):
+        pm.final_exp_device(f)
+    with pytest.raises(kernels.KernelError):
+        pm.final_exp_product(f, skip)
+    with pytest.raises(kernels.KernelError):
+        pm.pairing_check_device(p_aff + (skip,), q_aff + (skip,))
+
+
+@pytest.mark.parametrize("n", [1, 3, 17])
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_msm_small_on_the_ladder(dev, group, n):
+    """Below small_msm_threshold points the MSM runs the digit ladder (one
+    ladder launch, no K2 dbl) and equals the native engine's, a zero scalar
+    and a point at infinity among the points."""
+    if group == "g1":
+        pts, msm_fn, from_dev, native_msm = _points(dev, n, 70 + n)[0], msm_g1, g1_from_device, \
+            native.g1_msm
+        plain = cuda_ops.PLAIN
+    else:
+        pts, msm_fn, from_dev, native_msm = _g2_points(dev, n, 70 + n), msm_g2, g2_from_device, \
+            native.g2_msm
+        plain = cuda_ops.PLAIN2
+    x, y, inf = plain.to_affine(pts)
+    if n > 1:
+        inf[n // 3] = True
+    host = from_dev((x, y, inf))
+    scal = _ints(71 + n, R, n) if n > 3 else [int(v) for v in np.random.default_rng(n).integers(
+        1, 1 << 62, n)]
+    if n > 1:
+        scal[n - 1] = 0
+    kernels.reset_launches()
+    got = msm_fn((x, y, inf), torch.from_numpy(FR.encode(scal)).to(dev))
+    counts = kernels.launch_counts()
+    assert counts[f"{group}_ladder"] == 1 and counts[f"{group}_dbl"] == 0
+    assert from_dev(tuple(t[..., None] for t in got))[0] == native_msm(host, scal)
+
+
+def test_device_verify_launches(dev):
+    """One device verify_eval on a 2^4 proof: one miller_loop and one
+    final_exp launch, x h and y g on the ladder kernel, at most 100 counted
+    launches; the batched verify's h^Z and g^r on the ladder kernel with at
+    most 60 K2 launches on either engine."""
+    from kzg_tpu_torch.kzg import setup
+    from kzg_tpu_torch.kzg.coeff_form import KZGProver, KZGVerifier
+    from kzg_tpu_torch.poly import Polynomial
+
+    rs = np.random.default_rng(17)
+    coeffs = [int.from_bytes(rs.bytes(32), "little") % R for _ in range(16)]
+    xs = [int.from_bytes(rs.bytes(32), "little") % R for _ in range(16)]
+    ys = [sum(c * pow(t, i, R) for i, c in enumerate(coeffs)) % R for t in xs]
+    params = setup(0xBEEF, 32)
+    prover = KZGProver(params)
+    poly = Polynomial.from_ints(coeffs)
+    c = prover.commit(poly)
+    w = prover.create_witness(poly, (xs[0], ys[0]))
+    bw = prover.create_witness_batched(poly, xs, ys)
+    k2 = ("g1_add", "g1_dbl", "g2_add", "g2_dbl")
+    for engine in ("host", "device"):
+        v = KZGVerifier(params, engine=engine)
+        kernels.reset_launches()
+        assert v.verify_eval((xs[0], ys[0]), c, w)
+        counts = kernels.launch_counts()
+        if engine == "device":
+            assert counts["miller_loop"] == 1 and counts["final_exp"] == 1
+            assert counts["g1_ladder"] == 1 and counts["g2_ladder"] == 1
+            assert sum(counts.values()) <= 100, counts
+        kernels.reset_launches()
+        assert v.verify_eval_batched(c, bw, xs)
+        counts = kernels.launch_counts()
+        assert counts["g1_ladder"] >= 1 and counts["g2_ladder"] >= 1
+        assert sum(counts[k] for k in k2) <= 60, counts
+        assert counts["miller_loop"] == (engine == "device")
 
 
 # ---- the sharded layer (parallel/) at world 1 on NCCL ---------------------------------------
