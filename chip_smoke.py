@@ -10,7 +10,14 @@ non-zero before the result line:
   3. kernels  - every kernel against its plain PyTorch twin on the card, at
                 main-path shapes, exact equality (all of it is integer math):
                 K1 field ops at 2^15 (Fr and Fp, edges 0, 1, p-1) and the
-                standalone make_mul / make_add / make_sub entries, K2 add/dbl
+                standalone make_mul / make_add / make_sub entries; every
+                ordered pair of `bench.field_body.carry_operands` (runs of
+                all-ones and zero words, values just below each 2^(32 k),
+                p - 1, R and R^2 mod p) through each kernel that runs
+                field.cuh's one-thread body (K1 add / sub / mul / a * a /
+                mul_const, K8 at k = 1 and 65, field_scan, ntt_block and
+                ntt_stage at 2^12 and 2^15, fr_horner, wide K2 and K7 and K3
+                over G1 and G2 on points of those coordinates), K2 add/dbl
                 in both modes (narrow: two points a block on 16-lane
                 products; wide: one thread a point) at 1, 3 and 2^12 points
                 (infinity, P+P, P+(-P) lanes), at each kernel's crossover
@@ -639,6 +646,7 @@ def main(argv=None) -> int:
         return sharded_rank(args.sharded_rank, args.x)
 
     from kzg_tpu_torch import kernels, native
+    from kzg_tpu_torch.bench import field_body as fbench
     from kzg_tpu_torch.bench import horner as hbench
     from kzg_tpu_torch.bench import ladder as lbench
     from kzg_tpu_torch.bench import madd_multi as mmbench
@@ -652,6 +660,7 @@ def main(argv=None) -> int:
     )
     from kzg_tpu_torch.fields import FP, FR
     from kzg_tpu_torch.fields import cuda_field
+    from kzg_tpu_torch.fields.limb import ints_to_words, words_to_ints
     from kzg_tpu_torch.kzg.coeff_form import (
         KZGProver, KZGVerifier, g1_compressed, g2_compressed,
     )
@@ -848,6 +857,81 @@ def main(argv=None) -> int:
             check(F.decode(got[:, :3]) == [(x * F.mont_r) % mod for x in xs[:3]],
                   f"K1 {F.name} to_mont edges against Python ints")
         kinfo["field_elementwise"]["max_abs_err"] = k1_err
+
+        # the carry operands (`bench.field_body.carry_operands`: runs of
+        # all-ones and zero words, values just below each 2^(32 k), p - 1, R
+        # and R^2 mod p, ...): every ordered pair through every kernel that
+        # runs field.cuh's one-thread body, word for word against its plain
+        # version, the products also against Python ints
+        t0 = time.perf_counter()
+        for F, mod in ((FR, R), (FP, P)):
+            a, b = fbench.carry_words(F, dev)
+            n_pairs = a.shape[-1]
+            errs = [max_abs_diff(cuda_field.binary(F, op, x, y),
+                                 cuda_field.binary_plain(F, op, x, y))
+                    for op in (cuda_field.ADD, cuda_field.SUB, cuda_field.MUL)
+                    for x, y in ((a, b), (a, a))]
+            for c in fbench.carry_operands(mod, F.W)[::7]:
+                cw = ints_to_words([c], F.W)[:, 0]
+                errs.append(max_abs_diff(cuda_field.mul_const(F, a, cw),
+                                         cuda_field.mul_const_plain(F, a, cw)))
+            r_inv = pow(1 << (32 * F.W), -1, mod)
+            check(max(errs) == 0 and words_to_ints(cuda_field.binary(F, cuda_field.MUL, a, b))
+                  == [x * y * r_inv % mod for x, y in zip(words_to_ints(a), words_to_ints(b))],
+                  f"K1 {F.name} add, sub, mul, a * a and mul_const on the {n_pairs} carry-operand "
+                  "pairs equal plain (the products also Python ints)")
+            err = max(max_abs_diff(cuda_field.mul_chain(F, k, a, b),
+                                   cuda_field.mul_chain_plain(F, k, a, b)) for k in (1, 65))
+            check(err == 0, f"K8 {F.name} one thread, k = 1 and 65, on the carry-operand pairs "
+                  "equals plain")
+            err = max(max_abs_diff(cuda_field.field_scan(F, op, a, rev),
+                                   cuda_field.field_scan_plain(F, op, a, rev))
+                      for op in (cuda_field.MUL, cuda_field.ADD) for rev in (False, True))
+            check(err == 0, f"field_scan {F.name} mul and add, both directions, over the "
+                  "carry-operand pairs equals plain")
+        ops_r = fbench.carry_operands(R, FR.W)
+        for e in (12, 15):
+            x = torch.from_numpy(ints_to_words(
+                [ops_r[i % len(ops_r)] for i in range(1 << e)], FR.W)).to(dev)
+            dom = Domain(e)
+            for fwd in ("ntt", "intt", "coset_ntt"):
+                want = getattr(dom.as_plain(), fwd)(x)
+                err = max(max_abs_diff(getattr(d, fwd)(x), want) for d in (dom, dom.as_stages()))
+                check(err == 0, f"ntt_block and ntt_stage: {fwd} 2^{e} of the Fr carry operands "
+                      "equals the plain domain")
+        f = torch.from_numpy(ints_to_words(
+            [ops_r[i % len(ops_r)] for i in range(4097)], FR.W)).to(dev)
+        xk = torch.from_numpy(ints_to_words([ops_r[1], ops_r[-1], ops_r[len(ops_r) // 2]],
+                                            FR.W)).to(dev)
+        err = max_abs_diff(horner_mod.fr_horner(f, xk), horner_mod.fr_horner_plain(f, xk))
+        check(err == 0, "fr_horner: 4,097 Fr carry operands divided at three of them equals plain")
+        for group, add_fn, dbl_fn, add_p, dbl_p, mm_fn, mm_p in (
+                ("g1", cuda_ops.add, cuda_ops.dbl, cuda_ops.add_plain, cuda_ops.dbl_plain,
+                 cuda_ops.madd_multi, cuda_ops.madd_multi_plain),
+                ("g2", cuda_ops.g2_add, cuda_ops.g2_dbl, cuda_ops.g2_add_plain,
+                 cuda_ops.g2_dbl_plain, cuda_ops.g2_madd_multi, cuda_ops.g2_madd_multi_plain)):
+            p, q = fbench.carry_points(group, dev)
+            n_pts = p[0].shape[-1]
+            err = max(max_abs_diff(add_fn(p, q, mode="wide"), add_p(p, q)),
+                      max_abs_diff(dbl_fn(p, mode="wide"), dbl_p(p)))
+            check(err == 0, f"K2 {group} add and dbl, wide, on {n_pts} carry-operand points "
+                  "equal plain")
+            lanes = torch.arange(n_pts, device=dev)
+            qa = (torch.stack([q[0], q[2]], dim=-2), torch.stack([q[1], p[2]], dim=-2))
+            skip = torch.stack([lanes % 5 == 0, lanes % 7 == 1])
+            neg = torch.stack([lanes % 3 == 0, lanes % 3 == 2])
+            err = max_abs_diff(mm_fn(p, qa, skip, neg, mode="wide"), mm_p(p, qa, skip, neg))
+            check(err == 0, f"K7 {group} wide, two steps over {n_pts} carry-operand lanes, "
+                  "equals plain")
+            rows = cuda_ops.point_rows(q[0], q[1])
+            order = torch.arange(n_pts, dtype=torch.int32, device=dev)[None]
+            pos = torch.arange(0, n_pts, 16, dtype=torch.int32, device=dev)
+            length = (n_pts - pos).clamp(max=16).to(torch.int32)
+            err = max_abs_diff(cuda_ops.bucket_runs(rows, order, pos, length),
+                               cuda_ops.bucket_runs_plain(rows, order, pos, length))
+            check(err == 0, f"K3 {group}: sub-runs of 16 carry-operand points equal plain")
+        log(f"  carry operands through K1, K8, field_scan, ntt_block, ntt_stage, fr_horner, wide "
+            f"K2 and K7, K3: equal their plain versions ({time.perf_counter() - t0:.1f} s)")
 
         # K2: Jacobian points with random Z built from SRS points
         fplain = FP.as_plain()

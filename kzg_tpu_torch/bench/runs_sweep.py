@@ -6,7 +6,8 @@
    factor) on the MSM shapes of the main paths, random scalars over SRS
    points from `setup_device`: the K3 route at 2^15 points, c = 10 (the 2^15
    commit), at 2^20 - 1 points, c = 14 (the 2^20 witness), at 2^20, c = 15
-   (the 2^20 commit), and over Fp2 at 2^15, c = 10; the bucket loop on K7
+   (the 2^20 commit), at 2^24, c = 16 (the 2^24 commit), and over Fp2 at
+   2^15, c = 10; the bucket loop on K7
    at 2^15 - 1 points, c = 9 (the 2^15 witness), and at 2^12, c = 7 (the
    evaluation-form commit). For each: the split, K3 alone, the combine and
    the whole route, or the loop and its K7 launches (CUDA events, mean of 5
@@ -110,7 +111,7 @@ def main(argv=None) -> int:
     with ThreadPoolExecutor(max_workers=len(MIN_BLOCKS) * 2) as pool:  # nvcc beside the setup
         builds = {(k, g): pool.submit(build_variant, k, g) for k in MIN_BLOCKS for g in K3_SOURCES}
         kernels.library()
-        srs = setup_device(SEED, 1 << 20, g2_count=1 << 15, device=dev)
+        srs = setup_device(SEED, 1 << 24, g2_count=1 << 15, device=dev)
         builds = {key: f.result() for key, f in builds.items()}
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -127,6 +128,7 @@ def main(argv=None) -> int:
         "K3 2^15, c = 10": (G1, inputs(srs.gs, 1 << 15, 10)),
         "K3 2^20 - 1, c = 14": (G1, inputs(srs.gs, (1 << 20) - 1, 14)),
         "K3 2^20, c = 15": (G1, inputs(srs.gs, 1 << 20, 15)),
+        "K3 2^24, c = 16": (G1, inputs(srs.gs, 1 << 24, 16)),
         "K3-G2 2^15, c = 10": (G2, inputs(srs.hs, 1 << 15, 10)),
         "K7 loop 2^15 - 1, c = 9": (G1, inputs(srs.gs, (1 << 15) - 1, 9)),
         "K7 loop 2^12, c = 7": (G1, inputs(srs.gs, 1 << 12, 7)),

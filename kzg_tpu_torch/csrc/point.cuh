@@ -42,7 +42,7 @@ constexpr int kW = Fp::N;  // 12 words per Fp coordinate
 __device__ __forceinline__ FpE add(const FpE& a, const FpE& b) { return fe_add<Fp>(a, b); }
 __device__ __forceinline__ FpE sub(const FpE& a, const FpE& b) { return fe_sub<Fp>(a, b); }
 __device__ __forceinline__ FpE mul(const FpE& a, const FpE& b) { return fe_mul<Fp>(a, b); }
-__device__ __forceinline__ FpE sqr(const FpE& a) { return fe_mul<Fp>(a, a); }
+__device__ __forceinline__ FpE sqr(const FpE& a) { return fe_sqr<Fp>(a); }
 __device__ __forceinline__ bool is_zero(const FpE& a) { return fe_is_zero<Fp>(a); }
 
 __device__ __forceinline__ Fp2E add(const Fp2E& a, const Fp2E& b) { return fp2_add(a, b); }
@@ -313,12 +313,12 @@ madd_multi_wide_kernel(uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
 //
 // Minimum resident blocks of K3 an SM, for __launch_bounds__ (registers
 // <= 65,536 / (128 * blocks) a thread). Timed on an H100 at 1, 2 and 3
-// (bench/runs_sweep.py, PERF.md): over Fp, 3 (168 registers, 92 B
-// spilled) runs the 2^20 MSM shapes 9-14 % faster than ptxas's own 230
-// registers, two blocks an SM, and 2 % slower at 2^15; over Fp2, 3 spills
-// 1.8 KB and runs 39-56 % slower, so it keeps 1 (255 registers, 580 B
-// spilled). KZG_K3_MIN_BLOCKS, when defined, sets both (the sweep's
-// variants).
+// (bench/runs_sweep.py, PERF.md): over Fp, 3 (168 registers, no spill)
+// runs the 2^24 commit's shape 2.9 % and the 2^20 witness's 1.5 % faster
+// than ptxas's own 197 registers at 1 or 2, and 2-6 % slower at the 2^20
+// commit's and at 2^15; over Fp2, 3 spills 1.2 KB and runs 1.8x slower,
+// so it keeps 1 (255 registers, 460 B spilled). KZG_K3_MIN_BLOCKS, when
+// defined, sets both (the sweep's variants).
 template <class E>
 struct K3MinBlocks {
 #ifdef KZG_K3_MIN_BLOCKS

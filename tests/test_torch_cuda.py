@@ -40,6 +40,7 @@ import pytest
 import torch
 
 from kzg_tpu_torch import config, kernels, native
+from kzg_tpu_torch.bench import field_body as fbench
 from kzg_tpu_torch.bench import horner as hbench
 from kzg_tpu_torch.bench import ladder as lbench
 from kzg_tpu_torch.bench import madd_multi as mmbench
@@ -49,6 +50,7 @@ from kzg_tpu_torch.curve import (
     G1, G2, cuda_ops, g1_from_device, g2_from_device, g2_generator_device,
 )
 from kzg_tpu_torch.fields import FP, FR, cuda_field
+from kzg_tpu_torch.fields.limb import ints_to_words, words_to_ints
 from kzg_tpu_torch.msm import msm_g1, msm_g2, pippenger
 from kzg_tpu_torch.ntt import Domain, mxu
 from kzg_tpu_torch.poly import horner
@@ -89,6 +91,42 @@ def test_k1_mul_const(dev, field, mod):
     a = torch.from_numpy(field.encode(_ints(3, mod, 777))).to(dev)
     for c in (field.r2_words, field.one_std_words):
         assert _equal(cuda_field.mul_const(field, a, c), cuda_field.mul_const_plain(field, a, c))
+
+
+@pytest.mark.parametrize("field,mod", [(FR, R), (FP, P)], ids=["Fr", "Fp"])
+def test_k1_k8_carry_operands(dev, field, mod):
+    """K1 add / sub / mul / mul_const and K8's one-thread chain (k = 1 and
+    65) against their plain versions word for word on every ordered pair
+    of `bench.field_body.carry_operands` (runs of all-ones and zero words,
+    values just below each 2^(32 k), p - 1, R and R^2 mod p, ...), the
+    products also against Python integers."""
+    a, b = fbench.carry_words(field, dev)
+    for op in (cuda_field.ADD, cuda_field.SUB, cuda_field.MUL):
+        assert _equal(cuda_field.binary(field, op, a, b), cuda_field.binary_plain(field, op, a, b))
+    assert _equal(cuda_field.binary(field, cuda_field.MUL, a, a),
+                  cuda_field.binary_plain(field, cuda_field.MUL, a, a))
+    r_inv = pow(1 << (32 * field.W), -1, mod)
+    xs, ys = words_to_ints(a), words_to_ints(b)
+    assert words_to_ints(cuda_field.binary(field, cuda_field.MUL, a, b)) == [
+        x * y * r_inv % mod for x, y in zip(xs, ys)]
+    for c in fbench.carry_operands(mod, field.W)[::7]:
+        c_words = ints_to_words([c], field.W)[:, 0]
+        assert _equal(cuda_field.mul_const(field, a, c_words),
+                      cuda_field.mul_const_plain(field, a, c_words))
+    for k in (1, 65):
+        assert _equal(cuda_field.mul_chain(field, k, a, b),
+                      cuda_field.mul_chain_plain(field, k, a, b))
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_k2_wide_carry_operands(dev, group):
+    """Wide K2 add and dbl (one thread a point: field.cuh's products, and
+    over G2 `fp2_mul` / `fp2_sqr`) against the twin on coordinates whose
+    words are the Fp carry operands."""
+    add, dbl, add_plain, dbl_plain, _, _ = K2[group]
+    p, q = fbench.carry_points(group, dev)
+    assert _equal(add(p, q, mode="wide"), add_plain(p, q))
+    assert _equal(dbl(p, mode="wide"), dbl_plain(p))
 
 
 def _points(dev, n, seed):

@@ -166,6 +166,9 @@ def test_kernel_header_constants():
 
     def words(name):
         body = re.search(rf"{name}\[\d+\] = \{{([^}}]*)\}}", src).group(1)
+        macro = re.search(rf"#define {body.strip()}((?:.*\\\n)*.*)", src)
+        if macro:  # an initializer list the header #defines once for two uses
+            body = macro.group(1).replace("\\", " ")
         return [int(v.strip().rstrip("u"), 16) for v in body.split(",")]
 
     def nprime(tag):
