@@ -527,9 +527,12 @@ def device_ms(fn):
     stream, so kernels never overlap and the sum is the busy time). Only
     the CUDA activity is traced: the host-side operator events would repeat
     the kernels' time, and on a device verify's chain of ~20,000 launches
-    recording them took most of the pairing phase's time."""
+    recording them took most of the pairing phase's time. The program's
+    spans (`kzg_tpu_torch.trace.SPANS`) are ranges, not work: skipped."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from kzg_tpu_torch.trace import SPANS
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
@@ -539,7 +542,7 @@ def device_ms(fn):
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = evt.self_cuda_time_total
-        if us > 0 and evt.device_type == DeviceType.CUDA:
+        if us > 0 and evt.device_type == DeviceType.CUDA and evt.key not in SPANS:
             by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + us / 1e3
     return sum(by_kernel.values()), sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
 

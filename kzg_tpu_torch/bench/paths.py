@@ -69,20 +69,24 @@ def _fr_words(torch, gen, n, dev, R):
 
 
 def _profile(torch, fn):
-    """(device busy ms, {group: device ms}) of one call under torch.profiler."""
+    """(device busy ms, {group: device ms}) of one call under torch.profiler.
+    The program's spans (`kzg_tpu_torch.trace`, in a tree that has them) are
+    ranges, not work: entries named as a user annotation of the session are
+    skipped."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    spans = {ev.name() for ev in prof.profiler.kineto_results.events() if ev.is_user_annotation()}
     busy = 0.0
     groups = dict.fromkeys(GROUPS, 0.0)
     for evt in prof.key_averages():
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = evt.self_cuda_time_total
-        if us > 0 and evt.device_type == DeviceType.CUDA:
+        if us > 0 and evt.device_type == DeviceType.CUDA and evt.key not in spans:
             busy += us / 1e3
             for g, keys in GROUPS.items():
                 if any(k in evt.key for k in keys):

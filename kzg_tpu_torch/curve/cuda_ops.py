@@ -120,6 +120,7 @@ import torch
 
 from .. import kernels
 from ..fields import FP
+from ..trace import span
 from .horner_schedule import WARPS
 from .ops import CurveOps, Fp2Adapter
 
@@ -523,7 +524,9 @@ def _bucket_sums(runs_fn, curve, rows, order, start, count, run_length):
     from ..msm import pippenger
 
     runs = pippenger.split_runs(start, count, order.shape[-1], run_length)
-    return pippenger.combine_runs(curve, runs_fn(rows, order, runs.pos, runs.length), runs)
+    with span("msm.accumulate"):
+        partial = runs_fn(rows, order, runs.pos, runs.length)
+    return pippenger.combine_runs(curve, partial, runs)
 
 
 def bucket_accumulate_plain(rows, order, start, count, run_length=None):

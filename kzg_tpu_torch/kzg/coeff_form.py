@@ -32,6 +32,7 @@ from ..ntt import Domain
 from ..oracle import ec_add, ec_mul, ec_neg
 from ..poly import Polynomial, lagrange_interpolation, vanishing_poly
 from ..poly.polynomial import _div_stream_chunk, _pad_to
+from ..trace import span
 from .engines import verify_batched_device, verify_eval_device
 from .errors import (
     BatchedPointsNotOnPolynomial,
@@ -68,24 +69,26 @@ class KZGProver:
     def commit(self, poly: Polynomial):
         """C = MSM(gs[..n], coeffs)  (coeff_form.rs:59-64). Returns a
         Jacobian point, 3 x (12,) words."""
-        n = poly.num_coeffs()
-        if n > self.params.n:
-            raise PolynomialDegreeTooLarge(f"{n} coefficients, SRS holds {self.params.n}")
-        return msm_g1(_slice_srs(self.params.gs, n), poly.trimmed())
+        with span("kzg.commit"):
+            n = poly.num_coeffs()
+            if n > self.params.n:
+                raise PolynomialDegreeTooLarge(f"{n} coefficients, SRS holds {self.params.n}")
+            return msm_g1(_slice_srs(self.params.gs, n), poly.trimmed())
 
     def create_witness(self, poly: Polynomial, point, check: bool = True):
         """Witness for f(x) = y: psi = (f - y)/(X - x), w = MSM(gs, psi)
         (coeff_form.rs:66-81). Raises PointNotOnPolynomial when y != f(x);
         check=False skips that device -> host round trip."""
-        x, y = point
-        if check and poly.eval(x % R) != y % R:
-            raise PointNotOnPolynomial(f"({x}, {y}) not on polynomial")
-        if poly.degree == 0:
-            return G1.infinity((), poly.device)
-        if poly.num_coeffs() > (1 << get_config().msm_chunk_log) and x % R != 0:
-            return self._witness_streamed(poly, x % R)
-        q, _ = poly.div_by_linear(x % R, want_rem=False)
-        return msm_g1(_slice_srs(self.params.gs, q.num_coeffs()), q.trimmed())
+        with span("kzg.witness"):
+            x, y = point
+            if check and poly.eval(x % R) != y % R:
+                raise PointNotOnPolynomial(f"({x}, {y}) not on polynomial")
+            if poly.degree == 0:
+                return G1.infinity((), poly.device)
+            if poly.num_coeffs() > (1 << get_config().msm_chunk_log) and x % R != 0:
+                return self._witness_streamed(poly, x % R)
+            q, _ = poly.div_by_linear(x % R, want_rem=False)
+            return msm_g1(_slice_srs(self.params.gs, q.num_coeffs()), q.trimmed())
 
     def _witness_streamed(self, poly: Polynomial, x: int):
         """The single-point witness chunk by chunk (`kzg_tpu/kzg/
@@ -180,17 +183,18 @@ class KZGVerifier:
 
     def verify_eval(self, point, commitment, witness) -> bool:
         """e(w, h^s / h^x) == e(C / g^y, h)  (coeff_form.rs:126-142)."""
-        x, y = point
-        if self._engine() == "device":
-            return verify_eval_device(self.params, x % R, y % R, commitment, witness)
-        c_host = g1_from_device(tuple(t[..., None] for t in commitment))[0]
-        w_host = g1_from_device(tuple(t[..., None] for t in witness))[0]
-        s2 = ec_add(self._hs1, ec_neg(ec_mul(self._h, x % R)))  # h^(s - x)
-        rhs_g1 = ec_add(c_host, ec_neg(ec_mul(self._g, y % R)))  # C - y*g
-        # e(w, s2) * e(-(C - y g), h) == 1
-        return multi_pairing_check(
-            [(w_host, s2), (ec_neg(rhs_g1), self._h)], engine=self._engine()
-        )
+        with span("kzg.verify_eval"):
+            x, y = point
+            if self._engine() == "device":
+                return verify_eval_device(self.params, x % R, y % R, commitment, witness)
+            c_host = g1_from_device(tuple(t[..., None] for t in commitment))[0]
+            w_host = g1_from_device(tuple(t[..., None] for t in witness))[0]
+            s2 = ec_add(self._hs1, ec_neg(ec_mul(self._h, x % R)))  # h^(s - x)
+            rhs_g1 = ec_add(c_host, ec_neg(ec_mul(self._g, y % R)))  # C - y*g
+            # e(w, s2) * e(-(C - y g), h) == 1
+            return multi_pairing_check(
+                [(w_host, s2), (ec_neg(rhs_g1), self._h)], engine=self._engine()
+            )
 
     def verify_eval_batched(self, commitment, batch_witness: KZGBatchWitness, xs) -> bool:
         """e(w, h^Z) == e(C / g^r, h) (coeff_form.rs:144-182). h^Z is a G2

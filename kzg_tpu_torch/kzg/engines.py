@@ -18,6 +18,7 @@ import torch
 from ..curve import G1, G2
 from ..msm.pippenger import SMALL_MSM_WINDOW, _host_digits_msb
 from ..pairing.pairing import pairing_check_device
+from ..trace import span
 
 
 def _mul(curve, p, k: int):
@@ -41,10 +42,11 @@ def _check(a0, a1, b0, h) -> bool:
     """e(a0, b0) e(a1, h) == 1 for batch-(1,) Jacobian points a0, a1 (G1)
     and b0 (G2) and the affine (x, y) batch-(1,) G2 point h: both G1 points
     in one affine conversion, both pairs in the lanes of one check."""
-    g1 = G1.to_affine(tuple(torch.cat([u, v], dim=-1) for u, v in zip(a0, a1)))
-    b = G2.to_affine(b0)
-    g2 = (torch.cat([b[0], h[0]], dim=-1), torch.cat([b[1], h[1]], dim=-1),
-          torch.cat([b[2], torch.zeros_like(b[2])]))
+    with span("verify.to_affine"):
+        g1 = G1.to_affine(tuple(torch.cat([u, v], dim=-1) for u, v in zip(a0, a1)))
+        b = G2.to_affine(b0)
+        g2 = (torch.cat([b[0], h[0]], dim=-1), torch.cat([b[1], h[1]], dim=-1),
+              torch.cat([b[2], torch.zeros_like(b[2])]))
     return pairing_check_device(g1, g2)
 
 
@@ -52,9 +54,11 @@ def verify_eval_device(params, x: int, y: int, commitment, witness) -> bool:
     """e(w, h^s - x h) e(y g - C, h) == 1 on the device, for host ints x, y
     reduced mod r and Jacobian device points C, w."""
     h = _affine1(params.hs, 0)
-    xh = _mul(G2, G2.from_affine(*h), x)
+    with span("verify.xh"):
+        xh = _mul(G2, G2.from_affine(*h), x)
     s2 = G2.add(G2.from_affine(*_affine1(params.hs, 1)), G2.neg(xh))  # h^(s - x)
-    yg = _mul(G1, G1.from_affine(*_affine1(params.gs, 0)), y)
+    with span("verify.yg"):
+        yg = _mul(G1, G1.from_affine(*_affine1(params.gs, 0)), y)
     r1 = G1.add(yg, G1.neg(_expand1(commitment)))  # y g - C
     return _check(_expand1(witness), r1, s2, h)
 

@@ -61,6 +61,7 @@ import torch
 from ..config import get_config
 from ..curve import G1, G2, cuda_ops
 from ..fields import FR
+from ..trace import span
 
 
 # the digit ladder's window below small_msm_threshold points and in the
@@ -268,37 +269,41 @@ def split_runs(start, count, n: int, run_length: int | None = None) -> Runs:
     """Cut every run order[w, start : start + count] (the (W, B) arrays of
     `bucket_inputs`, n points a window) into sub-runs of at most L
     consecutive positions, L = `default_run_length(n, B)` unless given.
-    The one split of both routes and of both plain twins; the counts are
-    read to the host once, to size the arrays."""
+    The one split of both routes and of both plain twins. It waits for the
+    device three times: the counts are read to the host once, to size the
+    arrays (`.tolist()`), and each of the two `nonzero` of the combine's
+    plan waits for its own result size."""
     windows, buckets = start.shape
     limit = default_run_length(n, buckets) if run_length is None else run_length
     if limit < 1:
         raise ValueError(f"run length must be >= 1, got {limit}")
-    dev = start.device
-    cnt = count.reshape(-1).to(torch.int64)
-    m = (cnt + limit - 1) // limit  # sub-runs of each bucket
-    if cnt.numel():
-        total, longest, max_split = torch.stack([m.sum(), cnt.max(), m.max()]).tolist()
-    else:
-        total = longest = max_split = 0
-    bucket = torch.repeat_interleave(torch.arange(cnt.numel(), device=dev), m,
-                                     output_size=total)
-    j = torch.arange(total, device=dev) - (torch.cumsum(m, 0) - m)[bucket]  # place in bucket
-    base = start.to(torch.int64) + n * torch.arange(windows, device=dev)[:, None]
-    pos = base.reshape(-1)[bucket] + j * limit
-    length = torch.clamp(cnt[bucket] - j * limit, max=limit)
-    # longest first: full sub-runs, then the tails; stable, so a bucket's
-    # full sub-runs keep their run order
-    perm = torch.argsort(length, descending=True, stable=True)
-    inv = torch.empty_like(perm)
-    inv[perm] = torch.arange(total, device=dev)
-    cut = m[bucket] > 1
-    multi = cut.nonzero().squeeze(1)  # bucket-major, j ascending
-    return Runs(pos=pos[perm].to(torch.int32), length=length[perm].to(torch.int32),
-                bucket=bucket[perm], single=inv[(~cut).nonzero().squeeze(1)],
-                multi=inv[multi], rank=j[multi], size=m[bucket[multi]],
-                windows=windows, buckets=buckets, run_length=limit,
-                longest=min(limit, longest), max_split=max_split)
+    with span("msm.split"):
+        dev = start.device
+        cnt = count.reshape(-1).to(torch.int64)
+        m = (cnt + limit - 1) // limit  # sub-runs of each bucket
+        if cnt.numel():
+            total, longest, max_split = torch.stack([m.sum(), cnt.max(), m.max()]).tolist()
+        else:
+            total = longest = max_split = 0
+        bucket = torch.repeat_interleave(torch.arange(cnt.numel(), device=dev), m,
+                                         output_size=total)
+        # each sub-run's place in its bucket
+        j = torch.arange(total, device=dev) - (torch.cumsum(m, 0) - m)[bucket]
+        base = start.to(torch.int64) + n * torch.arange(windows, device=dev)[:, None]
+        pos = base.reshape(-1)[bucket] + j * limit
+        length = torch.clamp(cnt[bucket] - j * limit, max=limit)
+        # longest first: full sub-runs, then the tails; stable, so a bucket's
+        # full sub-runs keep their run order
+        perm = torch.argsort(length, descending=True, stable=True)
+        inv = torch.empty_like(perm)
+        inv[perm] = torch.arange(total, device=dev)
+        cut = m[bucket] > 1
+        multi = cut.nonzero().squeeze(1)  # bucket-major, j ascending
+        return Runs(pos=pos[perm].to(torch.int32), length=length[perm].to(torch.int32),
+                    bucket=bucket[perm], single=inv[(~cut).nonzero().squeeze(1)],
+                    multi=inv[multi], rank=j[multi], size=m[bucket[multi]],
+                    windows=windows, buckets=buckets, run_length=limit,
+                    longest=min(limit, longest), max_split=max_split)
 
 
 def combine_runs(curve, partial, runs: Runs):
@@ -307,24 +312,27 @@ def combine_runs(curve, partial, runs: Runs):
     its partial; the others are summed by one segmented pairwise tree:
     each level adds partials 2i and 2i + 1 of every bucket with one
     `curve.add` (K2, P + P and P + (-P) included), an odd last one carried,
-    ceil(log2 runs.max_split) levels."""
-    lead = partial[0].shape[:-1]
-    dev = partial[0].device
-    out = curve.infinity((runs.windows * runs.buckets,), dev)
-    out = tuple(o.index_copy(-1, runs.bucket[runs.single], p[..., runs.single])
-                for o, p in zip(out, partial))
-    cur = tuple(p[..., runs.multi] for p in partial)
-    bucket, rank, size = runs.bucket[runs.multi], runs.rank, runs.size
-    for _ in range((runs.max_split - 1).bit_length()):
-        even = rank % 2 == 0
-        keep = even.nonzero().squeeze(1)
-        pair = (even & (rank + 1 < size)).nonzero().squeeze(1)
-        sums = curve.add(tuple(t[..., pair] for t in cur), tuple(t[..., pair + 1] for t in cur))
-        slot = (torch.cumsum(even, 0) - 1)[pair]
-        cur = tuple(t[..., keep].index_copy(-1, slot, s_) for t, s_ in zip(cur, sums))
-        bucket, rank, size = bucket[keep], rank[keep] // 2, (size[keep] + 1) // 2
-    out = tuple(o.index_copy(-1, bucket, t) for o, t in zip(out, cur))
-    return tuple(o.reshape(lead + (runs.windows, runs.buckets)) for o in out)
+    ceil(log2 runs.max_split) levels. Each level waits for the device
+    twice, at its two `nonzero`."""
+    with span("msm.combine"):
+        lead = partial[0].shape[:-1]
+        dev = partial[0].device
+        out = curve.infinity((runs.windows * runs.buckets,), dev)
+        out = tuple(o.index_copy(-1, runs.bucket[runs.single], p[..., runs.single])
+                    for o, p in zip(out, partial))
+        cur = tuple(p[..., runs.multi] for p in partial)
+        bucket, rank, size = runs.bucket[runs.multi], runs.rank, runs.size
+        for _ in range((runs.max_split - 1).bit_length()):
+            even = rank % 2 == 0
+            keep = even.nonzero().squeeze(1)
+            pair = (even & (rank + 1 < size)).nonzero().squeeze(1)
+            sums = curve.add(tuple(t[..., pair] for t in cur),
+                             tuple(t[..., pair + 1] for t in cur))
+            slot = (torch.cumsum(even, 0) - 1)[pair]
+            cur = tuple(t[..., keep].index_copy(-1, slot, s_) for t, s_ in zip(cur, sums))
+            bucket, rank, size = bucket[keep], rank[keep] // 2, (size[keep] + 1) // 2
+        out = tuple(o.index_copy(-1, bucket, t) for o, t in zip(out, cur))
+        return tuple(o.reshape(lead + (runs.windows, runs.buckets)) for o in out)
 
 
 def loop_chunk(rows, order, runs: Runs, k0: int, fuse: int):
@@ -348,27 +356,36 @@ def _bucket_loop(curve, rows, order, start, count, run_length: int | None = None
     sub-run (<= L) sets the launch count. `combine_runs` finishes."""
     runs = split_runs(start, count, order.shape[-1], run_length)
     fuse = get_config().msm_fuse_steps
-    acc = curve.infinity((runs.pos.numel(),), rows.device)
-    for k0 in range(0, runs.longest, fuse):
-        q, skip = loop_chunk(rows, order, runs, k0, fuse)
-        acc = curve.madd_multi(acc, q, skip)
+    with span("msm.accumulate"):
+        acc = curve.infinity((runs.pos.numel(),), rows.device)
+        for k0 in range(0, runs.longest, fuse):
+            q, skip = loop_chunk(rows, order, runs, k0, fuse)
+            acc = curve.madd_multi(acc, q, skip)
     return combine_runs(curve, acc, runs)
 
 
 def _msm_runs(curve, xa, ya, inf, scalars_std, c: int):
-    inputs = bucket_inputs(xa, ya, inf, scalars_std, c)
+    with span("msm.digits"):
+        inputs = bucket_inputs(xa, ya, inf, scalars_std, c)
     if (1 << c) < RUNS_MIN_BUCKETS:
         acc = _bucket_loop(curve, *inputs)
     else:
         acc = curve.bucket_accumulate(*inputs)
-    s_all = weighted_bucket_sum(curve, acc)  # 3 x (12, W)
-    return curve.window_join(s_all, c)
+    with span("msm.bucket_sum"):
+        s_all = weighted_bucket_sum(curve, acc)  # 3 x (12, W)
+    with span("msm.window_join"):
+        return curve.window_join(s_all, c)
 
 
 def msm(curve, points, scalars_mont, c: int | None = None):
     """MSM: points = (x, y, inf_mask) affine batch ((12, N) words for G1,
     (12, 2, N) for G2), scalars (8, N) in Montgomery form. Returns one
     Jacobian point."""
+    with span("msm"):
+        return _msm(curve, points, scalars_mont, c)
+
+
+def _msm(curve, points, scalars_mont, c: int | None):
     xa, ya, inf = points
     n = xa.shape[-1]
     if scalars_mont.shape[-1] != n:
@@ -377,8 +394,8 @@ def msm(curve, points, scalars_mont, c: int | None = None):
     if n > chunk:
         acc = None
         for off in range(0, n, chunk):
-            part = msm(curve, tuple(t[..., off:off + chunk] for t in points),
-                       scalars_mont[..., off:off + chunk], c)
+            part = _msm(curve, tuple(t[..., off:off + chunk] for t in points),
+                        scalars_mont[..., off:off + chunk], c)
             acc = part if acc is None else curve.add(acc, part)
         return acc
     if c is None:

@@ -34,6 +34,7 @@ from .. import kernels
 from ..constants import BLS_X, P, R
 from ..curve import cuda_ops
 from ..fields import FP
+from ..trace import span
 from . import tower as tw
 
 # ---------------------------------------------------------------------------
@@ -284,7 +285,10 @@ def _pairing_product(xp, yp, p_inf, xq, yq, q_inf):
     exponentiation (two launches on a card). Returns one (12, 12) Gt
     element."""
     skip = p_inf | q_inf
-    return final_exp_product(miller_loop_device((xp, yp), (xq, yq), skip), skip)
+    with span("pairing.miller_loop"):
+        f = miller_loop_device((xp, yp), (xq, yq), skip)
+    with span("pairing.final_exp"):
+        return final_exp_product(f, skip)
 
 
 def pairing_check_device(g1_points, g2_points) -> bool:
@@ -293,7 +297,8 @@ def pairing_check_device(g1_points, g2_points) -> bool:
     (12, 2, n). The verdict is one boolean read from the device."""
     out = _pairing_product(g1_points[0], g1_points[1], g1_points[2],
                            g2_points[0], g2_points[1], g2_points[2])
-    return bool(tw.f12_is_one(out))
+    with span("pairing.read"):
+        return bool(tw.f12_is_one(out))
 
 
 def pairing_device(p_aff, q_aff):

@@ -19,6 +19,7 @@ import torch
 from ..config import get_config, resolve_device
 from ..fields import FR
 from ..ntt import Domain
+from ..trace import span
 from .horner import fr_horner
 
 
@@ -262,10 +263,11 @@ class Polynomial:
 
     def eval(self, x):
         """Evaluate at one point: int -> int, or (8, 1) tensor -> (8, 1)."""
-        if isinstance(x, int):
-            pt = torch.from_numpy(FR.encode([x])).to(self.device)
-            return FR.decode(_eval_many(self.trimmed(), pt))[0]
-        return _eval_many(self.trimmed(), x)
+        with span("poly.eval"):
+            if isinstance(x, int):
+                pt = torch.from_numpy(FR.encode([x])).to(self.device)
+                return FR.decode(_eval_many(self.trimmed(), pt))[0]
+            return _eval_many(self.trimmed(), x)
 
     def eval_many(self, pts):
         """Evaluate at (8, k) points -> (8, k) (multi_eval parity,
@@ -304,14 +306,15 @@ class Polynomial:
         want_rem=False skips the device -> host read of the remainder.
         Above 2^(div_chunk_log + 1) coefficients the division runs chunk by
         chunk (`_div_by_linear_big`), as in the reference (`:465-473`)."""
-        pt = torch.from_numpy(FR.encode([x])).to(self.device)
-        chunk_log = get_config().div_chunk_log
-        if self.num_coeffs() > (2 << chunk_log):
-            q, rem = _div_by_linear_big(self.trimmed(), pt, chunk_log)
-        else:
-            q, rem = _div_by_linear(self.trimmed(), pt)
-        qp = Polynomial(q[:, 0, :], max(0, self.degree - 1))
-        return qp, (FR.decode(rem)[0] if want_rem else None)
+        with span("poly.divide"):
+            pt = torch.from_numpy(FR.encode([x])).to(self.device)
+            chunk_log = get_config().div_chunk_log
+            if self.num_coeffs() > (2 << chunk_log):
+                q, rem = _div_by_linear_big(self.trimmed(), pt, chunk_log)
+            else:
+                q, rem = _div_by_linear(self.trimmed(), pt)
+            qp = Polynomial(q[:, 0, :], max(0, self.degree - 1))
+            return qp, (FR.decode(rem)[0] if want_rem else None)
 
     def __eq__(self, other):
         """Mathematical equality of the padded coefficients (tracked degrees

@@ -1150,6 +1150,72 @@ def test_device_verify_launches(dev):
         assert counts["miller_loop"] == (engine == "device")
 
 
+def _span_tree(prof):
+    """(name, parent) of every program span of a profiler session, in the
+    order they opened; the parent is the innermost span holding it."""
+    evs = sorted(((e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+                  for e in prof.profiler.kineto_results.events()
+                  if e.is_user_annotation() and e.device_type().name == "CPU"),
+                 key=lambda t: (t[1], -t[2]))
+    out = []
+    for i, (name, s, e) in enumerate(evs):
+        holders = [h for h in evs[:i] if h[1] <= s and e <= h[2]]
+        out.append((name, min(holders, key=lambda h: h[2] - h[1])[0] if holders else None))
+    return out, evs
+
+
+def test_program_spans_on_the_card(dev):
+    """A 2^15 commit (the K3 route), evaluation, witness and device
+    `verify_eval` under torch.profiler: the spans of `kzg_tpu_torch.trace`
+    nest as it lists them, the outputs equal an untraced run's, and the
+    host waits for the device (`cudaStreamSynchronize`) inside each MSM at
+    least at `split_runs`' three syncs and inside the verify at its verdict."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kzg_tpu_torch import trace
+    from kzg_tpu_torch.kzg.coeff_form import KZGProver, KZGVerifier
+    from kzg_tpu_torch.kzg.srs import setup_device
+    from kzg_tpu_torch.poly import Polynomial
+
+    n = 1 << 15
+    params = setup_device(0x5EED, n, g2_count=2, device=dev)
+    rs = np.random.default_rng(29)
+    poly = Polynomial.from_ints([int.from_bytes(rs.bytes(32), "little") % R for _ in range(n)],
+                                device=dev)
+    prover, verifier = KZGProver(params), KZGVerifier(params, engine="device")
+    x = int.from_bytes(rs.bytes(32), "little") % R
+
+    def job():
+        c = prover.commit(poly)
+        y = poly.eval(x)
+        w = prover.create_witness(poly, (x, y), check=False)
+        return c, w, verifier.verify_eval((x, y), c, w)
+
+    plain = job()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        traced = job()
+        torch.cuda.synchronize()
+    assert plain[2] and traced[2]
+    assert _equal(plain[0], traced[0]) and _equal(plain[1], traced[1])
+    msm = [("msm.digits", "msm"), ("msm.split", "msm"), ("msm.accumulate", "msm"),
+           ("msm.combine", "msm"), ("msm.bucket_sum", "msm"), ("msm.window_join", "msm")]
+    tree, evs = _span_tree(prof)
+    assert tree == [("kzg.commit", None), ("msm", "kzg.commit"), *msm, ("poly.eval", None),
+                    ("kzg.witness", None), ("poly.divide", "kzg.witness"),
+                    ("msm", "kzg.witness"), *msm, ("kzg.verify_eval", None),
+                    ("verify.xh", "kzg.verify_eval"), ("verify.yg", "kzg.verify_eval"),
+                    ("verify.to_affine", "kzg.verify_eval"),
+                    ("pairing.miller_loop", "kzg.verify_eval"),
+                    ("pairing.final_exp", "kzg.verify_eval"),
+                    ("pairing.read", "kzg.verify_eval")]
+    assert {name for name, _ in tree} <= set(trace.SPANS)
+    waits = [e.start_ns() for e in prof.profiler.kineto_results.events()
+             if e.name() == "cudaStreamSynchronize"]
+    for name, least in (("msm", 3), ("kzg.verify_eval", 1)):
+        for _, lo, hi in (t for t in evs if t[0] == name):
+            assert sum(lo <= w < hi for w in waits) >= least, name
+
+
 # ---- the sharded layer (parallel/) at world 1 on NCCL ---------------------------------------
 
 SHARDED_EXP = 10
