@@ -10,8 +10,13 @@ compiles it with the same sources into `build/pairing_variants/warps<w>/`
 (one nvcc process a variant, all started together). On `--lanes` random
 pairs, every variant's Miller values and final exponentiations (lane and
 product mode) are held to the library's word for word, then each is timed
-with CUDA events, the variants in turns, `--rounds` times. Prints one JSON object a variant and writes them all to
-`--json` (default build/pairing_variants/times.json).
+with CUDA events, the variants in turns, `--rounds` times. Each row carries
+the Miller loop's `chain_ms`: the dependent 16-lane products of a lane's
+programs (init, 63 tangent and 5 chord steps, conjugation; an inverse
+stage, of which the programs hold none, would count its Fermat chain) at
+the latency K8 measures for one 16-lane product. Prints one JSON object a
+variant and writes them all to `--json` (default
+build/pairing_variants/times.json).
 """
 
 import argparse
@@ -76,6 +81,8 @@ def main(argv=None) -> int:
 
     from .. import kernels, native
     from ..constants import R
+    from ..fields import FP
+    from .peaks import mul_peak
     from ..curve import g1_to_device, g2_to_device
     from ..oracle import g1_generator, g2_generator
     from ..pairing import pairing as pm
@@ -101,6 +108,9 @@ def main(argv=None) -> int:
     want_lane = pm.final_exp_device(want_f)
     want_prod = pm.final_exp_product(want_f)
     stream = kernels.stream_handle(dev)
+    lat_ms = 1e3 / mul_peak(FP, 1, device=dev, cooperative=True,
+                            generator=torch.Generator(device=dev).manual_seed(9)).marginal_rate
+    bits = schedule.LOOP_BITS
     entries = {}
     for w, (name, path) in zip(warps, libs.items()):
         lib = ctypes.CDLL(str(path))
@@ -129,8 +139,15 @@ def main(argv=None) -> int:
         if not same:
             raise kernels.KernelError(f"variant {name} differs from the library")
         mk, fk = schedule.miller_kernel(w), schedule.final_kernel(w)
+        crit = {g: schedule.critical_products(p) for g, p in mk.programs.items()}
+        chain = (crit["init"] + len(bits) * crit["tangent"] + sum(bits) * crit["chord"]
+                 + crit["conj"])
         entries[name] = {"runs": runs, "row": {
             "variant": name, "warps": w, "equal": same, "card": card,
+            "miller_inverse_stages": sum(st[0][0][0] == schedule.INV
+                                         for p in mk.programs.values() for st in p.stages),
+            "miller_chain_products": chain, "miller_chain_ms": chain * lat_ms,
+            "mul_latency_coop_us": lat_ms * 1e3,
             "model_tangent": schedule.cost(mk.programs["tangent"]),
             "model_cyc_mul": schedule.cost(fk.programs["cyc_mul"]),
             "stages_tangent": len(mk.programs["tangent"].stages),

@@ -9,13 +9,15 @@
 // ~20,700 launches of 12-108 Fp elements each, the device idle 0.90 of the
 // time between them.
 //
-// Bound: the latency of each block's chain of dependent products. A Miller
-// step is one Fp inverse, the Fermat chain of 381 dependent 16-lane
-// products, plus ~40 more products and the add / sub steps between them
-// on its critical path; 68 steps a pair. The final exponentiation is one
+// Bound: the latency of each block's chain of dependent operations and the
+// barriers between its stages. A Miller step holds no inverse: T stays in
+// homogeneous projective coordinates on the twist E'(Fp2) and each line is
+// three Fp2 coefficients (schedule.line_dbl, line_add), so a tangent step
+// is 14 stages with 11 dependent 16-lane products on its critical path,
+// the rest adds and subs; 68 steps a pair. The final exponentiation is one
 // inverse and 380 bits of a joint ladder, each a cyclotomic squaring and
 // (where the bit column is not 0) an Fp12 product. The whole check is
-// ~170,000 Fp products: not a bound at the card's product rate.
+// ~33,000 Fp products: not a bound at the card's product rate.
 //
 // Design: one block a pair (`miller_loop`, 32 warps) or an output
 // (`final_exp`, 16 warps; Prog::kWarps, from schedule.MILLER_WARPS and
@@ -26,7 +28,8 @@
 // stages of chains, half-warp h running chain h of a stage, each product,
 // add and sub spread over its 16 lanes (coop.cuh, each half under its own
 // mask, so the two halves of a warp run different chains), a block barrier
-// between stages. An inverse is a stage of its own: warp 0 runs the Fermat
+// between stages. An inverse (only the final exponentiation's easy part
+// holds one; Prog::kInverse) is a stage of its own: warp 0 runs the Fermat
 // chain of `field_pow` (field_kernels.cu), acc * base and base^2 on its two
 // halves a step. The control flow
 // between programs (the bits of |x|, the lanes of the product, the bit
@@ -52,28 +55,31 @@ constexpr unsigned kOpMul = 0u, kOpAdd = 1u, kOpSub = 2u, kOpInv = 3u;
 
 // slot dst = slot src ^ (p - 2) by warp 0 (lane 0-31): LSB first, half 0
 // forms acc * base and half 1 base^2 each step; acc and base double-buffered
-// in the four slots at Prog::kINV. inv(0) = 0.
+// in the four slots at Prog::kINV. inv(0) = 0. Empty for a kernel whose
+// programs hold no inverse (and so no kINV region).
 template <class Prog>
 __device__ __forceinline__ void fermat_inverse(uint32_t* sm, int dst, int src, int lane) {
-  const CoopLane<Fp> L(lane, kzg::kCoopPairMask);
-  const int half = lane >> 4;
-  uint32_t* buf = sm + kPairWords * Prog::kINV;  // [buffer][acc, base][word]
-  buf[kPairWords * half + L.j] =
-      half ? sm[kPairWords * src + L.j] : (L.j < Fp::N ? Fp::one(L.j) : 0u);
-  __syncwarp();
-  int cur = 0;
-#pragma unroll 1
-  for (int s = 0; s < kFermatBits; s++) {
-    const uint32_t* acc = buf + 2 * kPairWords * cur;
-    const uint32_t* base = acc + kPairWords;
-    const uint32_t r = kzg::coop_mul<Fp>(L, half ? base : acc, base);
-    const uint32_t e = Fp::mod(s >> 5) - (s < 32 ? 2u : 0u);  // word s / 32 of p - 2
-    const bool bit = (e >> (s & 31)) & 1u;
-    buf[2 * kPairWords * (cur ^ 1) + kPairWords * half + L.j] = (half || bit) ? r : acc[L.j];
-    cur ^= 1;
+  if constexpr (Prog::kInverse) {
+    const CoopLane<Fp> L(lane, kzg::kCoopPairMask);
+    const int half = lane >> 4;
+    uint32_t* buf = sm + kPairWords * Prog::kINV;  // [buffer][acc, base][word]
+    buf[kPairWords * half + L.j] =
+        half ? sm[kPairWords * src + L.j] : (L.j < Fp::N ? Fp::one(L.j) : 0u);
     __syncwarp();
+    int cur = 0;
+#pragma unroll 1
+    for (int s = 0; s < kFermatBits; s++) {
+      const uint32_t* acc = buf + 2 * kPairWords * cur;
+      const uint32_t* base = acc + kPairWords;
+      const uint32_t r = kzg::coop_mul<Fp>(L, half ? base : acc, base);
+      const uint32_t e = Fp::mod(s >> 5) - (s < 32 ? 2u : 0u);  // word s / 32 of p - 2
+      const bool bit = (e >> (s & 31)) & 1u;
+      buf[2 * kPairWords * (cur ^ 1) + kPairWords * half + L.j] = (half || bit) ? r : acc[L.j];
+      cur ^= 1;
+      __syncwarp();
+    }
+    if (half == 0) sm[kPairWords * dst + L.j] = buf[2 * kPairWords * cur + L.j];
   }
-  if (half == 0) sm[kPairWords * dst + L.j] = buf[2 * kPairWords * cur + L.j];
 }
 
 // Program g of Prog on the block's slots; every thread calls it. Half-warp
@@ -89,7 +95,7 @@ __device__ __forceinline__ void run_program(uint32_t* sm, int g) {
   for (int st = Prog::program(g); st < end; st++) {
     const int c0 = Prog::stage(st), c1 = Prog::stage(st + 1);
     const unsigned long long first = Prog::op(Prog::chain(c0));
-    if ((first & 0xffffu) == kOpInv) {
+    if (Prog::kInverse && (first & 0xffffu) == kOpInv) {
       if (warp == 0)
         fermat_inverse<Prog>(sm, (int)((first >> 16) & 0xffffu), (int)((first >> 32) & 0xffffu),
                              lane);
@@ -156,8 +162,10 @@ __device__ __forceinline__ void copy_f12(uint32_t* sm, int dst, int src) {
     sm[kPairWords * dst + t] = sm[kPairWords * src + t];
 }
 
-// One block a pair: f_{|x|,Q}(P) conjugated, (12, 12, n) words; Fp12 one
-// where skip[i] (P or Q infinite) is set.
+// One block a pair: f_{|x|,Q}(P) conjugated, (12, 12, n) words, times the
+// Fp2 factor of the projective lines (pairing.miller_loop_plain's value);
+// Fp12 one where skip[i] (P or Q infinite) is set. P and Q load affine; the
+// init program sets T = (x_Q, y_Q, 1) and f = 1.
 template <class Prog>
 __global__ void __launch_bounds__(32 * Prog::kWarps)
 miller_loop_kernel(uint32_t* __restrict__ out, const uint32_t* __restrict__ xp,

@@ -2,15 +2,15 @@
 //
 // kzg_miller_loop  replaces the K1 chain of the reference's Miller loop
 //     (kzg_tpu/pairing/pairing.py:109-160): one block a pair runs the
-//     untwist, the 63 tangent and 5 chord steps of |x| and the final
-//     conjugation.
+//     63 tangent and 5 chord steps of |x|, T projective on the twist, and
+//     the final conjugation.
 // kzg_final_exp    replaces the K1 chain of its final exponentiation
 //     (:163-170) and, in product mode, the f12_mul tree of
 //     `_pairing_product_jit` (:177-193) before it.
 // miller_loop runs 32 warps a block and final_exp 16 (schedule.MILLER_WARPS,
 // FINAL_WARPS), each stage's chains of 16-lane Fp operations on the
-// half-warps, each inverse on warp 0; bound by the chain of dependent
-// products (the Miller loop's 68 Fermat inverses first).
+// half-warps, the final exponentiation's one inverse on warp 0; bound by
+// the chain of dependent operations and the stages' barriers.
 //
 // C interface (ctypes): each entry launches on the caller's stream,
 // allocates nothing, and returns cudaGetLastError() of the launch.

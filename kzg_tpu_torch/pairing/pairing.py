@@ -5,7 +5,11 @@ Structure of the oracle (`oracle/curve.py`): untwist G2 to E(Fp12), the
 affine Miller loop f_{|x|,Q}(P) with the BLS x < 0 conjugation, then the
 final exponentiation (the easy part by conjugation, inverse and Frobenius,
 the hard part by the base-p decomposition of (p^4 - p^2 + 1) / r and one
-joint ladder of cyclotomic squarings).
+joint ladder of cyclotomic squarings). The port's Miller loop keeps T in
+homogeneous projective coordinates on the twist E'(Fp2) and scales each
+line by an Fp2 factor, so it runs no inverse; its value is the oracle's
+times an element of Fp2, which the easy part sends to 1, so every pairing
+equals the oracle's.
 
 On a CUDA tensor the loop and the exponentiation are one launch each: the
 `miller_loop` kernel (one block a pair) and the `final_exp` kernel (one
@@ -38,47 +42,6 @@ from ..trace import span
 from . import tower as tw
 
 # ---------------------------------------------------------------------------
-# untwist: w^-2, w^-3 as Fp12 constants (from the oracle tower, host ints)
-# ---------------------------------------------------------------------------
-
-_W_DEV = {}
-
-
-def _w_consts(device):
-    """(12, 12, 2): w^-2 and w^-3 stacked on `device`."""
-    key = str(device)
-    if key not in _W_DEV:
-        from ..oracle.curve import _w_inv_powers
-
-        _W_DEV[key] = torch.stack([tw.f12_from_oracle(c, device=device)
-                                   for c in _w_inv_powers()], dim=2)
-    return _W_DEV[key]
-
-
-def _fp_to_f12(x):
-    """Embed an Fp element (12, *batch) into Fp12."""
-    out = tw.f12_zero(tuple(x.shape[1:]), x.device)
-    out[:, 0] = x
-    return out
-
-
-def _fp2_to_f12(x):
-    """Embed an Fp2 element (12, 2, *batch) into Fp12."""
-    out = tw.f12_zero(tuple(x.shape[2:]), x.device)
-    out[:, 0:2] = x
-    return out
-
-
-def untwist_device(xq, yq):
-    """E'(Fp2) affine -> E(Fp12) affine: (x / w^2, y / w^3), both products
-    in one `f12_mul`."""
-    w = _w_consts(xq.device)
-    w = w.reshape(tuple(w.shape) + (1,) * (xq.dim() - 2))
-    out = tw.f12_mul(torch.stack([_fp2_to_f12(xq), _fp2_to_f12(yq)], dim=2), w)
-    return out[:, :, 0], out[:, :, 1]
-
-
-# ---------------------------------------------------------------------------
 # Miller loop
 # ---------------------------------------------------------------------------
 
@@ -86,44 +49,96 @@ def untwist_device(xq, yq):
 LOOP_BITS = tuple((-BLS_X >> i) & 1 for i in range((-BLS_X).bit_length() - 2, -1, -1))
 
 
+def _small(x, k: int):
+    """k x for a small k > 0: doublings and adds."""
+    out = None
+    while k:
+        if k & 1:
+            out = x if out is None else FP.add(out, x)
+        k >>= 1
+        if k:
+            x = FP.add(x, x)
+    return out
+
+
+def _sparse_line(c0, c3, c5):
+    """c0 + c3 w^3 + c5 w^5 (Fp2 coefficients (12, 2, *batch)) as an Fp12:
+    c3 at w v, c5 at w v^2."""
+    out = tw.f12_zero(tuple(c0.shape[2:]), c0.device)
+    out[:, 0:2], out[:, 8:10], out[:, 10:12] = c0, c3, c5
+    return out
+
+
+def _line_dbl(t, p):
+    """The tangent at T = (X, Y, Z), homogeneous projective on the twist
+    E'(Fp2): y^2 = x^3 + 4 xi, at the affine P: (line, 2T), the formulas of
+    `schedule.line_dbl`. The line is the reference's affine l_{T,T}(P) on
+    the untwisted points times 2 Y Z xi, an Fp2 factor that the final
+    exponentiation sends to 1; no inverse. Independent products share a
+    launch."""
+    x, y, z = t
+    xp, yp = p
+    pr = tw.f2_mul(torch.stack([y, z, y, x, x], 2), torch.stack([y, z, z, x, y], 2))
+    b, c, d, x2, xy = pr.unbind(2)
+    e = _small(tw.f2_mul_xi(c), 12)
+    f = _small(e, 3)
+    d2, g, e2 = FP.add(d, d), FP.add(b, f), FP.add(e, e)
+    pr = tw.f2_mul(torch.stack([FP.add(xy, xy), g, e2, b], 2),
+                   torch.stack([FP.sub(b, f), g, e2, _small(d2, 4)], 2))
+    x3, y3 = pr[:, :, 0], FP.sub(pr[:, :, 1], _small(pr[:, :, 2], 3))
+    s = FP.mul(torch.stack([tw.f2_mul_xi(d2), _small(x2, 3)], 2),
+               torch.stack([yp, xp], 1)[:, None])
+    return _sparse_line(s[:, :, 0], FP.sub(b, e), FP.neg(s[:, :, 1])), (x3, y3, pr[:, :, 3])
+
+
+def _line_add(t, q, p):
+    """The chord through T = (X, Y, Z) and the affine Q = (x_Q, y_Q) on the
+    twist, at P: (line, T + Q), the mixed addition of `schedule.line_add`;
+    the line is the reference's l_{T,Q}(P) times xi (X - x_Q Z)."""
+    x, y, z = t
+    xq, yq = q
+    xp, yp = p
+    pr = tw.f2_mul(torch.stack([yq, xq], 2), z[:, :, None])
+    n, lam = FP.sub(y, pr[:, :, 0]), FP.sub(x, pr[:, :, 1])
+    sq = tw.f2_mul(torch.stack([n, lam], 2), torch.stack([n, lam], 2))
+    nn, ll = sq.unbind(2)
+    pr = tw.f2_mul(torch.stack([lam, x, z, n, lam], 2), torch.stack([ll, ll, nn, xq, yq], 2))
+    e, g, znn, nxq, lyq = pr.unbind(2)
+    h = FP.sub(FP.add(e, znn), FP.add(g, g))
+    pr = tw.f2_mul(torch.stack([lam, n, e, z], 2), torch.stack([h, FP.sub(g, h), y, e], 2))
+    s = FP.mul(torch.stack([tw.f2_mul_xi(lam), n], 2), torch.stack([yp, xp], 1)[:, None])
+    return (_sparse_line(s[:, :, 0], FP.sub(nxq, lyq), FP.neg(s[:, :, 1])),
+            (pr[:, :, 0], FP.sub(pr[:, :, 1], pr[:, :, 2]), pr[:, :, 3]))
+
+
 def _line_step(f, t, p, q=None):
     """One Miller step: with q None the tangent at t (f <- f^2 l_{T,T}(P),
     T <- 2T), else the chord through t and q (f <- f l_{T,Q}(P),
-    T <- T + Q); lines evaluated at p, all points E(Fp12) affine
-    (`_line_tangent`, `_line_chord`, `_ec_add_with_lambda` of the
-    reference). Independent products share a launch: f^2 with x_t^2, the
-    slope times (x_p - x_t) with the slope squared, f with the line and the
-    slope with (x_t - x_3)."""
-    xt, yt = t
-    xp, yp = p
+    T <- T + Q). t projective (three Fp2 (12, 2, *batch)), q affine (two
+    Fp2), p affine (two Fp (12, *batch))."""
     if q is None:
-        sq = tw.f12_sqr(torch.stack([f, xt], dim=2))
-        f, x2 = sq[:, :, 0], sq[:, :, 1]
-        num, den, other_x = FP.add(FP.add(x2, x2), x2), FP.add(yt, yt), xt
+        ell, t = _line_dbl(t, p)
+        f = tw.f12_sqr(f)
     else:
-        num, den, other_x = FP.sub(q[1], yt), FP.sub(q[0], xt), q[0]
-    lam = tw.f12_mul(num, tw.f12_inv(den))
-    pr = tw.f12_mul(torch.stack([lam, lam], dim=2), torch.stack([FP.sub(xp, xt), lam], dim=2))
-    ell = FP.sub(FP.sub(yp, yt), pr[:, :, 0])
-    x3 = FP.sub(FP.sub(pr[:, :, 1], xt), other_x)
-    pr = tw.f12_mul(torch.stack([f, lam], dim=2), torch.stack([ell, FP.sub(xt, x3)], dim=2))
-    return pr[:, :, 0], (x3, FP.sub(pr[:, :, 1], yt))
+        ell, t = _line_add(t, q, p)
+    return tw.f12_mul(f, ell), t
 
 
 def miller_loop_plain(p_aff, q_aff):
     """Plain version of the `miller_loop` kernel: f_{|x|,Q}(P), conjugated
-    for x < 0, as tensor code over the tower. p_aff = (xp, yp) Fp
-    coordinates (12, *batch); q_aff = (xq, yq) Fp2 coordinates (12, 2,
-    *batch). Points must not be infinity (callers select those lanes
-    away)."""
-    q = untwist_device(*q_aff)
-    p = (_fp_to_f12(p_aff[0]), _fp_to_f12(p_aff[1]))
-    f = tw.f12_one(tuple(p_aff[0].shape[1:]), p_aff[0].device)
-    t = q
+    for x < 0, as tensor code over the tower, T in projective coordinates on
+    the twist from (x_Q, y_Q, 1). The value is the reference's affine
+    Miller value times an Fp2 factor, so equal to it after the final
+    exponentiation. p_aff = (xp, yp) Fp coordinates (12, *batch); q_aff =
+    (xq, yq) Fp2 coordinates (12, 2, *batch). Points must not be infinity
+    (callers select those lanes away)."""
+    batch, dev = tuple(p_aff[0].shape[1:]), p_aff[0].device
+    f = tw.f12_one(batch, dev)
+    t = (q_aff[0], q_aff[1], tw.f2_one(batch, dev))
     for bit in LOOP_BITS:
-        f, t = _line_step(f, t, p)
+        f, t = _line_step(f, t, p_aff)
         if bit:
-            f, t = _line_step(f, t, p, q)
+            f, t = _line_step(f, t, p_aff, q_aff)
     return tw.f12_conj(f)
 
 
@@ -310,4 +325,4 @@ def pairing_device(p_aff, q_aff):
 
 __all__ = ["miller_loop_device", "miller_loop_plain", "final_exp_device", "final_exp_plain",
            "final_exp_product", "final_exp_easy", "pairing_device", "pairing_check_device",
-           "untwist_device", "kernel_inputs"]
+           "kernel_inputs"]

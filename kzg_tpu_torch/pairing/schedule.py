@@ -3,10 +3,12 @@ and `final_exp`, as stages of chains of Fp operations on numbered
 shared-memory slots, and their header `csrc/pairing_schedule.cuh`.
 
 The formulas are those of `pairing/tower.py` and `pairing/pairing.py` (the
-port of `kzg_tpu/pairing/`), written once more over symbolic Fp values: a
-`Trace` records every Fp product, add, sub and inverse they make, with
-common subexpressions merged and the operations on a known zero dropped
-(the embedded P and the untwisted Q are sparse: x * 0 = 0, x + 0 = x and
+port of `kzg_tpu/pairing/`; the Miller loop's steps projective on the twist
+where the reference's are affine on the untwisted points), written once
+more over symbolic Fp values: a `Trace` records every Fp product, add, sub
+and inverse they make, with common subexpressions merged and the
+operations on a known zero dropped (a line has 6 of its 12 Fp coefficients
+zero, so f * line comes out as the sparse product: x * 0 = 0, x + 0 = x and
 x - 0 = x give the same canonical words). `schedule` cuts the recorded
 graph into STAGES, each a set of CHAINS that a block runs side by side, one
 chain a half-warp, a block barrier closing the stage:
@@ -17,9 +19,10 @@ chain a half-warp, a block barrier closing the stage:
   * an operation whose operands come from earlier stages or from ONE chain
     of this stage joins that chain while the chain stays within the
     stage's longest load (at least `MIN_BUDGET`);
-  * an inverse is a stage of its own: the Fermat chain a^(p - 2), LSB
-    first, 381 steps of acc * base and base^2 on the two half-warps of
-    warp 0 (the `field_pow` kernel's chain, `csrc/field_kernels.cu`).
+  * an inverse (the final exponentiation's easy part holds the one) is a
+    stage of its own: the Fermat chain a^(p - 2), LSB first, 381 steps of
+    acc * base and base^2 on the two half-warps of warp 0 (the `field_pow`
+    kernel's chain, `csrc/field_kernels.cu`).
 
 `build` gives every value a slot: the kernel's fixed regions (the
 constants, the inputs, the state a program updates in place, the subset
@@ -55,8 +58,9 @@ BARRIER = 0.1  # a block barrier, in products (the cost model's unit)
 # may run three of them whatever its load
 LINEAR = 0.3
 MIN_BUDGET = 0.9
-# warps a block, a chain a half-warp: the Miller loop gains from 32, the final
-# exponentiation not (`python3 -m kzg_tpu_torch.bench.pairing` times both)
+# warps a block, a chain a half-warp: the Miller loop gains from 32 (1.365 ms
+# against 1.401 at 16 and 1.760 at 8 on an H100), the final exponentiation
+# not (`python3 -m kzg_tpu_torch.bench.pairing` times both)
 MILLER_WARPS = 32
 FINAL_WARPS = 16
 FERMAT_BITS = (P - 2).bit_length()  # 381 steps of the in-kernel inverse
@@ -71,25 +75,13 @@ LOOP_BITS = tuple((-BLS_X >> i) & 1 for i in range((-BLS_X).bit_length() - 2, -1
 
 
 # ---------------------------------------------------------------------------------------
-# the constants: w^-2, w^-3 and the Frobenius factors, standard-form ints
+# the cost model and the Frobenius factors (standard-form ints)
 # ---------------------------------------------------------------------------------------
 
 
 def op_cost(kind):
     """An operation's cost in products."""
     return 1.0 if kind == MUL else LINEAR
-
-
-def _f12_ints(o):
-    """Oracle Fp12 -> its 12 Fp coefficients in the tower's order."""
-    return [c.n for c6 in (o.c0, o.c1) for c2 in (c6.c0, c6.c1, c6.c2) for c in (c2.a, c2.b)]
-
-
-def w_inv_ints():
-    """w^-2 and w^-3, 12 ints each (the untwist's factors)."""
-    from ..oracle.curve import _w_inv_powers
-
-    return tuple(_f12_ints(w) for w in _w_inv_powers())
 
 
 def frob_ints():
@@ -262,14 +254,6 @@ def flat12(c0, c1):
     return [v for f2 in list(c0) + list(c1) for v in f2]
 
 
-def f12_add(t, x, y):
-    return [t.add(a, b) for a, b in zip(x, y)]
-
-
-def f12_sub(t, x, y):
-    return [t.sub(a, b) for a, b in zip(x, y)]
-
-
 def f12_mul(t, x, y):
     """Karatsuba over Fp6 (tower.f12_mul)."""
     a0, a1 = split12(x)
@@ -325,37 +309,93 @@ def f12_cyclotomic_sqr(t, x):
     return [v for k in (0, 1, 2, 5, 3, 4) for v in out[k]]
 
 
-def embed_fp(t, x):
-    return [x] + [t.zero] * 11
+def f2_small(t, x, k):
+    """k x for a small k > 0: doublings and adds."""
+    out, base = None, x
+    while k:
+        if k & 1:
+            out = base if out is None else f2_add(t, out, base)
+        k >>= 1
+        if k:
+            base = f2_add(t, base, base)
+    return out
 
 
-def embed_fp2(t, x):
-    return list(x) + [t.zero] * 10
+def f2_mul_fp(t, x, s):
+    return (t.mul(x[0], s), t.mul(x[1], s))
 
 
-def untwist(t, xq, yq):
-    """E'(Fp2) -> E(Fp12): (x w^-2, y w^-3), the constants' zeros dropped."""
-    w2, w3 = w_inv_ints()
-    return (f12_mul(t, embed_fp2(t, xq), [t.const(v) for v in w2]),
-            f12_mul(t, embed_fp2(t, yq), [t.const(v) for v in w3]))
+def sparse_line(t, c0, c3, c5):
+    """The line c0 + c3 w^3 + c5 w^5 as a flat Fp12: c0 at 1, c3 at w v
+    (c1.c1), c5 at w v^2 (c1.c2); the Trace drops the products by its
+    zeros, so f * line is the sparse product."""
+    z = (t.zero, t.zero)
+    return flat12([c0, z, z], [z, c3, c5])
 
 
-def line_step(t, f, xt, yt, xp, yp, q=None):
+def line_dbl(t, tp, xp, yp):
+    """The tangent at T = (X, Y, Z), homogeneous projective on E'(Fp2):
+    y^2 = x^3 + 4 xi, evaluated at the affine P; returns (line, 2T). The
+    line is the affine one (pairing.py's reference: l_{T,T}(P) on the
+    untwisted points) times 2 Y Z xi, an Fp2 factor the final
+    exponentiation sends to 1; 2T is 4 times Costello-Lange-Naehrig's
+    (Aranha et al. 2011, section 4), so no halving:
+
+        B = Y^2, C = Z^2, D = Y Z, E = 12 xi C, F = 3 E
+        X3 = 2 X Y (B - F), Y3 = (B + F)^2 - 3 (2 E)^2, Z3 = 8 B D
+        line = 2 xi D y_P + (B - E) w^3 - 3 X^2 x_P w^5
+    """
+    x, y, z = tp
+    b, c, d, x2 = f2_sqr(t, y), f2_sqr(t, z), f2_mul(t, y, z), f2_sqr(t, x)
+    a2 = f2_small(t, f2_mul(t, x, y), 2)
+    e = f2_small(t, f2_mul_xi(t, c), 12)
+    f = f2_small(t, e, 3)
+    d2 = f2_small(t, d, 2)
+    x3 = f2_mul(t, a2, f2_sub(t, b, f))
+    y3 = f2_sub(t, f2_sqr(t, f2_add(t, b, f)), f2_small(t, f2_sqr(t, f2_small(t, e, 2)), 3))
+    z3 = f2_mul(t, b, f2_small(t, d2, 4))
+    ell = sparse_line(t, f2_mul_fp(t, f2_mul_xi(t, d2), yp), f2_sub(t, b, e),
+                      f2_neg(t, f2_mul_fp(t, f2_small(t, x2, 3), xp)))
+    return ell, (x3, y3, z3)
+
+
+def line_add(t, tp, q, xp, yp):
+    """The chord through T = (X, Y, Z) and the affine Q = (x_Q, y_Q) on
+    E'(Fp2) at P; returns (line, T + Q). The line is the affine one times
+    xi L, with the mixed addition of Aranha et al. (2011):
+
+        N = Y - y_Q Z, L = X - x_Q Z, E = L^3, G = X L^2,
+        H = E + Z N^2 - 2 G
+        X3 = L H, Y3 = N (G - H) - E Y, Z3 = Z E
+        line = xi L y_P + (N x_Q - L y_Q) w^3 - N x_P w^5
+    """
+    x, y, z = tp
+    xq, yq = q
+    n = f2_sub(t, y, f2_mul(t, yq, z))
+    lam = f2_sub(t, x, f2_mul(t, xq, z))
+    ll = f2_sqr(t, lam)
+    e, g = f2_mul(t, lam, ll), f2_mul(t, x, ll)
+    h = f2_sub(t, f2_add(t, e, f2_mul(t, z, f2_sqr(t, n))), f2_small(t, g, 2))
+    x3 = f2_mul(t, lam, h)
+    y3 = f2_sub(t, f2_mul(t, n, f2_sub(t, g, h)), f2_mul(t, e, y))
+    z3 = f2_mul(t, z, e)
+    ell = sparse_line(t, f2_mul_fp(t, f2_mul_xi(t, lam), yp),
+                      f2_sub(t, f2_mul(t, n, xq), f2_mul(t, lam, yq)),
+                      f2_neg(t, f2_mul_fp(t, n, xp)))
+    return ell, (x3, y3, z3)
+
+
+def line_step(t, f, tp, xp, yp, q=None):
     """One Miller step (pairing._line_step): with q None the tangent at T
     (f <- f^2 l_{T,T}(P), T <- 2T), else the chord through T and Q
-    (f <- f l_{T,Q}(P), T <- T + Q); P embedded, all points affine."""
+    (f <- f l_{T,Q}(P), T <- T + Q). T projective (three Fp2), Q affine
+    (two Fp2) on E'(Fp2), P affine (two Fp); no inverse."""
     if q is None:
+        ell, tp = line_dbl(t, tp, xp, yp)
         f = f12_sqr(t, f)
-        x2 = f12_sqr(t, xt)
-        num, den, other_x = f12_add(t, f12_add(t, x2, x2), x2), f12_add(t, yt, yt), xt
     else:
-        num, den, other_x = f12_sub(t, q[1], yt), f12_sub(t, q[0], xt), q[0]
-    lam = f12_mul(t, num, f12_inv(t, den))
-    ell = f12_sub(t, f12_sub(t, embed_fp(t, yp), yt), f12_mul(t, lam, f12_sub(t, embed_fp(t, xp),
-                                                                             xt)))
-    x3 = f12_sub(t, f12_sub(t, f12_mul(t, lam, lam), xt), other_x)
-    y3 = f12_sub(t, f12_mul(t, lam, f12_sub(t, xt, x3)), yt)
-    return f12_mul(t, f, ell), x3, y3
+        ell, tp = line_add(t, tp, q, xp, yp)
+    return f12_mul(t, f, ell), tp
 
 
 # ---------------------------------------------------------------------------------------
@@ -579,25 +619,25 @@ def _region_out(t, name, values):
 
 
 def miller_layout():
-    w2, w3 = w_inv_ints()
-    consts = [1] + sorted({v for v in w2 + w3 if v})
-    return Layout(consts, [("XP", 1), ("YP", 1), ("Q", 4), ("XQ", 12), ("YQ", 12),
-                           ("F", 12), ("XT", 12), ("YT", 12), ("INV", 4)])
+    return Layout([1], [("XP", 1), ("YP", 1), ("Q", 4), ("F", 12), ("T", 6)])
+
+
+def _f2_region(t, name):
+    v = t.region(name)
+    return [(v[i], v[i + 1]) for i in range(0, len(v), 2)]
 
 
 def _miller_init(t):
-    xq, yq = untwist(t, (t.slot("Q", 0), t.slot("Q", 1)), (t.slot("Q", 2), t.slot("Q", 3)))
-    one = [t.one] + [t.zero] * 11
-    return (_region_out(t, "XQ", xq) + _region_out(t, "YQ", yq) + _region_out(t, "XT", xq)
-            + _region_out(t, "YT", yq) + _region_out(t, "F", one))
+    """T = (x_Q, y_Q, 1), f = 1."""
+    tp = t.region("Q") + [t.one, t.zero]
+    return _region_out(t, "T", tp) + _region_out(t, "F", [t.one] + [t.zero] * 11)
 
 
 def _miller_step(chord):
     def fn(t):
-        q = (t.region("XQ"), t.region("YQ")) if chord else None
-        f, x3, y3 = line_step(t, t.region("F"), t.region("XT"), t.region("YT"), t.slot("XP"),
-                              t.slot("YP"), q)
-        return _region_out(t, "F", f) + _region_out(t, "XT", x3) + _region_out(t, "YT", y3)
+        q = _f2_region(t, "Q") if chord else None
+        f, tp = line_step(t, t.region("F"), _f2_region(t, "T"), t.slot("XP"), t.slot("YP"), q)
+        return _region_out(t, "F", f) + _region_out(t, "T", [v for c in tp for v in c])
     return fn
 
 
@@ -839,9 +879,7 @@ def tower_program(fn, arity=1):
     """A standalone program of one traced tower function over flat Fp12
     operands A (and B), result in C, on a layout that holds every constant
     the tower uses: for the tests, which run it with `run_tower`."""
-    w2, w3 = w_inv_ints()
-    consts = [1] + sorted(set(frob_ints()) | {v for v in w2 + w3 if v})
-    layout = Layout(consts, [("A", 12), ("B", 12), ("C", 12), ("INV", 4)])
+    layout = Layout([1] + frob_ints(), [("A", 12), ("B", 12), ("C", 12), ("INV", 4)])
 
     def traced(t):
         args = [t.region("A"), t.region("B")][:arity]
@@ -905,6 +943,8 @@ def _render_kernel(k: Kernel) -> str:
         f"struct {tag}Prog {{",
         f"  static constexpr int kWarps = {k.warps}, kSlots = {k.slots}, "
         f"kConsts = {len(lay.consts)};",
+        f"  static constexpr bool kInverse = {str(any(op[0] == INV for op in ops)).lower()};"
+        "  // a program holds an inverse stage",
         "  static constexpr int kZero = 0, kConst = 1, "
         + ", ".join(f"k{n} = {lay.base[n]}" for n, _ in lay.regions) + ";",
         "  static constexpr int " + ", ".join(f"kProg{n.title().replace('_', '')} = {i}"
@@ -921,7 +961,7 @@ def _render_kernel(k: Kernel) -> str:
 def render(miller_warps=MILLER_WARPS, final_warps=FINAL_WARPS) -> str:
     return "\n".join([
         "// The programs of the pairing kernels (csrc/pairing.cuh): the Miller loop's",
-        "// untwist, tangent step, chord step and conjugation, and the final",
+        "// start (T = Q, f = 1), tangent step, chord step and conjugation, and the final",
         "// exponentiation's product, easy part, subset table, cyclotomic squaring and",
         "// ladder step, as stages of chains of Fp operations on shared-memory slots of",
         "// 16 words.",

@@ -1057,6 +1057,39 @@ def test_pairing_kernels_match_plain(dev, n, inf_lane):
     assert _equal(prod, pm.final_exp_plain(pm._product_plain(f, skip)))
 
 
+@pytest.mark.parametrize("inf", [False, True], ids=["finite", "lane-at-infinity"])
+def test_pairing_check_verdicts_match_host(dev, inf):
+    """pairing_check_device on e(a P, Q) e(-P, a Q) (times e(O, Q') where a
+    lane is at infinity), honest and with a + 1 in the second factor, gives
+    the host engine's verdicts."""
+    from kzg_tpu_torch import hostcrypto
+    from kzg_tpu_torch.oracle import ec_neg, g1_generator, g2_generator
+    from kzg_tpu_torch.pairing import pairing_check_device
+
+    rs = np.random.default_rng(90 + inf)
+    k1, k2, k3, a = (int.from_bytes(rs.bytes(32), "little") % R for _ in range(4))
+    p, q = native.g1_mul(g1_generator(), k1), native.g2_mul(g2_generator(), k2)
+    verdicts = []
+    for b in (a, (a + 1) % R):
+        pairs = [(native.g1_mul(p, a), q), (ec_neg(p), native.g2_mul(q, b))]
+        if inf:
+            pairs.append((None, native.g2_mul(g2_generator(), k3)))
+        (xp, yp), (xq, yq), skip = _pairs_of(dev, pairs)
+        got = pairing_check_device((xp, yp, skip), (xq, yq, torch.zeros_like(skip)))
+        assert got == hostcrypto.multi_pairing_check(pairs)
+        verdicts.append(got)
+    assert verdicts == [True, False]
+
+
+def _pairs_of(dev, pairs):
+    """Oracle (P, Q) pairs -> affine words and the lanes with P at infinity."""
+    from kzg_tpu_torch.curve import g1_to_device, g2_to_device
+
+    xp, yp, zp = g1_to_device([p for p, _ in pairs], dev)
+    xq, yq, _ = g2_to_device([q for _, q in pairs], dev)
+    return (xp, yp), (xq, yq), (zp == 0).all(dim=0)
+
+
 def test_pairing_kernels_never_fall_back(dev, monkeypatch):
     """On CUDA tensors the pairing's entry points reach the kernels or
     raise: a failed build raises KernelError, no tower code runs."""

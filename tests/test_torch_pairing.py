@@ -7,12 +7,13 @@ twin and every inverse the plain `field_pow` loop:
     eagerly, word for word, and the oracle's (`oracle/field.py`);
   * the joint Frobenius ladder at small exponents equals the oracle's
     powers, and the subset table's stacked products their one-by-one form;
-  * one Miller step (tangent, then chord) from f = 1, T = Q, and the easy
-    part of the final exponentiation equal the oracle's;
-  * `slow` (the plain `field_pow` inverses, ~0.7 s each, 69 a pairing):
-    the full pairing equals the oracle's `pairing`, and `verify_eval` /
-    `verify_eval_batched` with `engine="device"` give the host engine's
-    verdicts on a small proof, true and tampered.
+  * one projective Miller step (tangent, then chord) from f = 1 and
+    T = (x_Q, y_Q, 1): T's affine image and, up to an Fp2 factor, each line
+    and f equal the oracle's; the easy part of the final exponentiation
+    equals the oracle's; the full pairing (the Miller loop holds no
+    inverse, the final exponentiation one) equals the oracle's `pairing`;
+  * `slow`: `verify_eval` / `verify_eval_batched` with `engine="device"`
+    give the host engine's verdicts on a small proof, true and tampered.
 
 Tolerance 0: exact integer arithmetic. Elements and scalars from numpy
 seeds. The same checks run on the card in `tests/test_torch_cuda.py` and
@@ -28,7 +29,7 @@ from kzg_tpu.pairing import tower as jtw
 from kzg_tpu_torch import config, native
 from kzg_tpu_torch.constants import P, R
 from kzg_tpu_torch.curve import g1_to_device, g2_to_device
-from kzg_tpu_torch.fields import FR
+from kzg_tpu_torch.fields import FP, FR
 from kzg_tpu_torch.fields.limb import unpack16
 from kzg_tpu_torch.oracle import g1_generator, g2_generator, pairing
 from kzg_tpu_torch.oracle.curve import _line, untwist
@@ -191,29 +192,42 @@ def _affine(points, to_device):
     return x, y
 
 
+def _untwisted(t, i):
+    """Lane i of projective (X, Y, Z) words on E'(Fp2) -> the oracle's
+    untwisted affine point (X / Z, Y / Z)."""
+    x, y, z = (Fp2(*(Fp(v) for v in FP.decode(c[:, :, i].contiguous()))) for c in t)
+    zi = z.inv()
+    return untwist((x * zi, y * zi))
+
+
 def test_miller_steps_match_oracle():
-    """From f = 1 and T = Q untwisted: one tangent step, then one chord
-    step, each against the oracle's f^2 l_{T,T}(P), 2T and f l_{T,Q}(P),
-    T + Q, for two pairs in lanes."""
+    """From f = 1 and T = (x_Q, y_Q, 1): one tangent step, then one chord
+    step, for two pairs in lanes. T's affine image, untwisted, equals the
+    oracle's 2Q and 2Q + Q; each step's line and f over the oracle's affine
+    l_{T,T}(P), l_{2T,Q}(P) and f lie in Fp6 (an Fp2 factor)."""
     from kzg_tpu_torch.oracle import ec_add
 
     ps, qs = _points(2)
-    p_aff = _affine(ps, g1_to_device)
-    q = pmod.untwist_device(*_affine(qs, g2_to_device))
-    p = (pmod._fp_to_f12(p_aff[0]), pmod._fp_to_f12(p_aff[1]))
+    p = _affine(ps, g1_to_device)
+    q = _affine(qs, g2_to_device)
+    t0 = (q[0], q[1], tw.f2_one((2,), "cpu"))
     f = tw.f12_one((2,), "cpu")
-    f, t = pmod._line_step(f, q, p)
+    f, t = pmod._line_step(f, t0, p)
     f2, t2 = pmod._line_step(f, t, p, q)
+    ells = (pmod._line_dbl(t0, p)[0], pmod._line_add(t, q, p)[0])
     for i in range(2):
         uq = untwist(qs[i])
         up = (Fp12.from_fp(ps[i][0]), Fp12.from_fp(ps[i][1]))
-        assert _oracle(q[0])[i] == uq[0] and _oracle(q[1])[i] == uq[1]
-        want_f = _line(uq, uq, up)
         want_t = ec_add(uq, uq)
-        assert _oracle(f)[i] == want_f
-        assert (_oracle(t[0])[i], _oracle(t[1])[i]) == want_t
-        assert _oracle(f2)[i] == want_f * _line(want_t, uq, up)
-        assert (_oracle(t2[0])[i], _oracle(t2[1])[i]) == ec_add(want_t, uq)
+        want_ell = (_line(uq, uq, up), _line(want_t, uq, up))
+        assert _untwisted(t0, i) == uq
+        assert _untwisted(t, i) == want_t
+        assert _untwisted(t2, i) == ec_add(want_t, uq)
+        for got, want in ((ells[0], want_ell[0]), (ells[1], want_ell[1]), (f, want_ell[0]),
+                          (f2, want_ell[0] * want_ell[1])):
+            ratio = _oracle(got)[i] * want.inv()
+            assert ratio.c1.is_zero() and ratio.c0.c1.is_zero() and ratio.c0.c2.is_zero()
+            assert not ratio.is_zero()
 
 
 def test_final_exp_easy_matches_oracle(elems):
@@ -227,8 +241,9 @@ def test_loop_bits_and_hard_digits():
     assert sum(h * P ** i for i, h in enumerate(pmod.HARD_BASE_P)) == (P ** 4 - P ** 2 + 1) // R
 
 
-@pytest.mark.slow
 def test_pairing_device_matches_oracle():
+    """The plain Miller loop (projective, no inverse) and the plain final
+    exponentiation on two pairs in lanes: the oracle's pairing."""
     ps, qs = _points(2)
     got = pmod.pairing_device(_affine(ps, g1_to_device), _affine(qs, g2_to_device))
     assert _oracle(got) == [pairing(p, q) for p, q in zip(ps, qs)]

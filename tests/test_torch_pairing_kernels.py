@@ -2,17 +2,23 @@
 on the CPU:
 
   * every program of `kzg_tpu_torch/pairing/schedule.py` (the programs
-    `csrc/pairing.cuh` runs: the Miller loop's untwist, tangent and chord
-    steps with the in-kernel inverse and conjugation; the final
-    exponentiation's product, easy part, subset table, cyclotomic squaring
+    `csrc/pairing.cuh` runs: the Miller loop's start, projective tangent
+    and chord steps and conjugation; the final exponentiation's product,
+    easy part with the in-kernel inverse, subset table, cyclotomic squaring
     and joint-ladder step; and standalone programs of f12_mul, f12_sqr,
     f12_inv, f12_conj, the Frobenius and the cyclotomic squaring), run on
     Python integers as the kernels run them, equals `pairing/tower.py` and
-    the JAX package's `kzg_tpu.pairing.tower` word for word on random seeded
-    elements;
+    `pairing/pairing.py` word for word on random seeded elements; the tower
+    programs and the final exponentiation's equal the JAX package's
+    `kzg_tpu.pairing.tower` word for word, and a Miller step's T, after the
+    step and taken affine, equals the JAX package's affine step, its line
+    and f the JAX package's up to a factor in Fp6;
+  * no Miller program holds an inverse, and a step's critical path stays
+    short;
   * the kernels' control flow (`simulate_miller`, `simulate_final_exp`,
-    `simulate_product`) equals the oracle's Miller loop and final
-    exponentiation, skipped lanes contributing 1, and the product tree;
+    `simulate_product`) equals the plain versions word for word and, after
+    the final exponentiation, the oracle's pairing, skipped lanes
+    contributing 1, and the product tree;
   * the committed header equals `render()`; the bit columns recompose the
     hard exponent; the loop bits are the JAX loop's;
   * on CPU tensors the wrappers run the plain versions and never load the
@@ -23,8 +29,7 @@ on the CPU:
     under `slow`: its XLA compile takes 30-150 s a shape on a CPU);
   * the device engine's verdicts equal the host engine's, true and
     tampered, with the pairing's plain versions replaced by the kernels'
-    programs on Python integers (the plain versions take ~80 s a check on a
-    CPU; `tests/test_torch_pairing.py` runs them under `slow`).
+    programs on Python integers.
 
 Tolerance 0: exact integer arithmetic. Elements and scalars from numpy
 seeds. The kernels themselves run on the card in `tests/test_torch_cuda.py`
@@ -48,7 +53,7 @@ from kzg_tpu_torch.fields import FR
 from kzg_tpu_torch.fields.limb import unpack16
 from kzg_tpu_torch.msm import msm_g1, msm_g2
 from kzg_tpu_torch.oracle import ec_add, ec_mul, g1_generator, g2_generator
-from kzg_tpu_torch.oracle.curve import final_exponentiation, miller_loop
+from kzg_tpu_torch.oracle.curve import _line, final_exponentiation, miller_loop, untwist
 from kzg_tpu_torch.oracle.field import Fp, Fp2, Fp6, Fp12
 from kzg_tpu_torch.pairing import pairing as pm
 from kzg_tpu_torch.pairing import schedule as S
@@ -111,7 +116,8 @@ def _oracle12(lane):
 
 
 def _lane_of(o):
-    return [S.mont(v) for v in S._f12_ints(o)]
+    return [S.mont(c.n) for c6 in (o.c0, o.c1) for c2 in (c6.c0, c6.c1, c6.c2)
+            for c in (c2.a, c2.b)]
 
 
 def _cyclotomic_lanes(seed):
@@ -169,65 +175,120 @@ def _points(k, seed=77):
     return ps, qs
 
 
+def _ints(*ts):
+    """Fp words (12, *shape) of one lane -> their Montgomery ints, tensor
+    after tensor (an Fp2 gives two)."""
+    out = []
+    for t in ts:
+        a = t.reshape(12, -1).numpy().astype(np.int64) & 0xFFFFFFFF
+        out += [sum(int(a[w, i]) << (32 * w) for w in range(12)) for i in range(a.shape[1])]
+    return out
+
+
+def _fp2(a, b):
+    return Fp2(Fp(S.unmont(a)), Fp(S.unmont(b)))
+
+
+def _untwisted(t):
+    """Projective words (X, Y, Z) of one lane on E'(Fp2) -> the oracle's
+    untwisted affine point (X / Z, Y / Z) on E(Fp12)."""
+    x, y, z = (_fp2(*_ints(c)) for c in t)
+    zi = z.inv()
+    return untwist((x * zi, y * zi))
+
+
+def _jax12(o):
+    return _jax(_words([_lane_of(o)]))
+
+
 @pytest.fixture(scope="module")
 def miller_state():
     """One pair's Miller state after a tangent step of the port's plain
-    version from a random f: f, T = 2Q, P embedded and Q, all untwisted
-    E(Fp12) words, and P's affine words."""
+    version from a random f and T = (x_Q, y_Q, 1): f and T = 2Q projective
+    words, P and Q affine words, and P and Q as oracle points."""
     ps, qs = _points(1)
     xp, yp, _ = g1_to_device(ps, device="cpu")
     xq, yq, _ = g2_to_device(qs, device="cpu")
-    q = pm.untwist_device(xq, yq)
-    p = (pm._fp_to_f12(xp), pm._fp_to_f12(yp))
-    f, t = pm._line_step(_words(_rand_lanes(9, 1)), q, p)
-    return f, t, p, q, (xp, yp)
+    f, t = pm._line_step(_words(_rand_lanes(9, 1)), (xq, yq, tw.f2_one((1,), "cpu")), (xp, yp))
+    return f, t, (xp, yp), (xq, yq), ps[0], qs[0]
 
 
 def _f12(t):
     return _lanes(t)[0]
 
 
-def _fp(t):
-    return _lanes(pm._fp_to_f12(t))[0][0]
-
-
 @pytest.mark.parametrize("chord", [False, True], ids=["tangent", "chord"])
 def test_miller_step_program_matches_port_and_jax(miller_state, chord):
-    """One Miller step of the kernel's program (the inverse inside) against
-    the port's `_line_step` and the JAX package's line functions."""
-    f, t, p, q, (xp, yp) = miller_state
+    """One projective Miller step of the kernel's program against the port's
+    `_line_step` word for word; T's affine image after it, untwisted,
+    against the oracle's and the JAX package's affine step from T's affine
+    image; the step's line over the JAX package's affine line (equal to the
+    oracle's) lies in Fp6, and so does the new f over the affine step's."""
+    f, t, p, q, pt, qt = miller_state
     k = S.miller_kernel()
-    regions = {"F": _f12(f), "XT": _f12(t[0]), "YT": _f12(t[1]), "XP": [_fp(xp)],
-               "YP": [_fp(yp)], "XQ": _f12(q[0]), "YQ": _f12(q[1])}
+    regions = {"F": _f12(f), "T": _ints(*t), "XP": _ints(p[0]), "YP": _ints(p[1]),
+               "Q": _ints(*q)}
     mem = S.simulate_program(k, "chord" if chord else "tangent", regions)
-    got = [S.region(k, mem, r) for r in ("F", "XT", "YT")]
-    wf, (wx, wy) = pm._line_step(f, t, p, q if chord else None)
-    assert got == [_f12(wf), _f12(wx), _f12(wy)]
-    jf, jt, jp, jq = _jax(f), tuple(map(_jax, t)), tuple(map(_jax, p)), tuple(map(_jax, q))
+    wf, wt = pm._line_step(f, t, p, q if chord else None)
+    assert [S.region(k, mem, "F"), S.region(k, mem, "T")] == [_f12(wf), _ints(*wt)]
+    ut, uq = _untwisted(t), untwist(qt)
+    up = (Fp12.from_fp(pt[0]), Fp12.from_fp(pt[1]))
+    jt, jq, jp = (tuple(_jax12(c) for c in u) for u in (ut, uq, up))
+    jf = _jax(f)
     if chord:
-        ell, lam = jpm._line_chord(jt, jq, jp)
-        jf = jtw.f12_mul(jf, ell)
+        ell_j, lam = jpm._line_chord(jt, jq, jp)
         jt = jpm._ec_add_with_lambda(jt, jq[0], lam)
+        want_t, want_ell = ec_add(ut, uq), _line(ut, uq, up)
+        ell = pm._line_add(t, q, p)[0]
     else:
-        ell, lam = jpm._line_tangent(jt, jp)
-        jf = jtw.f12_mul(jtw.f12_sqr(jf), ell)
+        ell_j, lam = jpm._line_tangent(jt, jp)
         jt = jpm._ec_add_with_lambda(jt, jt[0], lam)
-    assert got == [_from_jax(jf)[0], _from_jax(jt[0])[0], _from_jax(jt[1])[0]]
+        jf = jtw.f12_sqr(jf)
+        want_t, want_ell = ec_add(ut, ut), _line(ut, ut, up)
+        ell = pm._line_dbl(t, p)[0]
+    got_t = _untwisted(wt)
+    assert got_t == want_t
+    assert [_lane_of(c) for c in got_t] == [_from_jax(c)[0] for c in jt]
+    affine_ell = _oracle12(_from_jax(ell_j)[0])
+    assert affine_ell == want_ell
+    for got, affine in ((_f12(ell), affine_ell),
+                        (_f12(wf), _oracle12(_from_jax(jtw.f12_mul(jf, ell_j))[0]))):
+        ratio = _oracle12(got) * affine.inv()
+        assert ratio.c1.is_zero() and not ratio.c0.is_zero()
 
 
 def test_miller_init_and_conj_programs():
+    """init: T = (x_Q, y_Q, 1) and f = 1, the plain version's start; conj
+    as the port's f12_conj."""
     ps, qs = _points(1)
     xq, yq, _ = g2_to_device(qs, device="cpu")
-    q = pm.untwist_device(xq, yq)
     k = S.miller_kernel()
-    qin = [_lanes(pm._fp2_to_f12(c))[0][i] for c in (xq, yq) for i in range(2)]
-    mem = S.simulate_program(k, "init", {"Q": qin})
-    one = [S.mont(1)] + [0] * 11
-    assert [S.region(k, mem, r) for r in ("XQ", "YQ", "XT", "YT", "F")] == [
-        _f12(q[0]), _f12(q[1]), _f12(q[0]), _f12(q[1]), one]
+    mem = S.simulate_program(k, "init", {"Q": _ints(xq, yq)})
+    assert S.region(k, mem, "T") == _ints(xq, yq, tw.f2_one((1,), "cpu"))
+    assert S.region(k, mem, "F") == _f12(tw.f12_one((1,), "cpu"))
     f = _rand_lanes(5, 1)
     mem = S.simulate_program(k, "conj", {"F": f[0]})
     assert S.region(k, mem, "F") == _lanes(tw.f12_conj(_words(f)))[0]
+
+
+# the tangent step's critical path, in dependent products, at most: 11 at 32
+# warps, 11 at 16, 14 at 8 (the affine step with its inverse: 414)
+TANGENT_CRITICAL_MAX = 16
+
+
+@pytest.mark.parametrize("warps", [8, 16, S.MILLER_WARPS])
+def test_miller_programs_hold_no_inverse(warps):
+    """No Miller program holds an inverse, and the steps' critical paths
+    stay short: an inverse back in the loop would add its 381-product
+    Fermat chain to each of the 68 steps."""
+    k = S.miller_kernel(warps)
+    for name, prog in k.programs.items():
+        assert all(op[0] != S.INV for st in prog.stages for ch in st for op in ch), name
+    for name in ("tangent", "chord"):
+        assert S.critical_products(k.programs[name]) <= TANGENT_CRITICAL_MAX, name
+    header = S.render(warps, S.FINAL_WARPS)
+    miller = header[header.index("struct MillerProg"):header.index("struct FinalProg")]
+    assert "kInverse = false;" in miller and "kINV" not in miller
 
 
 def test_final_exp_programs_match_port_and_jax():
@@ -280,22 +341,32 @@ def test_product_matches_the_tree(skip):
 
 
 def test_simulated_kernels_match_oracle():
-    """The Miller loop on two pairs and a skipped one, and the final
-    exponentiation in lane and product mode, against the oracle."""
+    """The Miller loop on two pairs and a skipped one: the kernel's programs
+    equal the plain version and the CPU path (a skipped lane giving one)
+    word for word, and over the oracle's affine Miller value lie in Fp6;
+    after the final exponentiation in lane and product mode they equal the
+    oracle's, and so does the CPU path's final exponentiation."""
     ps, qs = _points(2, seed=21)
-    fs = []
-    for p, q in zip(ps, qs):
-        fs.append(S.simulate_miller(S.mont(p[0].n), S.mont(p[1].n),
-                                    (S.mont(q[0].a.n), S.mont(q[0].b.n)),
-                                    (S.mont(q[1].a.n), S.mont(q[1].b.n))))
-        assert _oracle12(fs[-1]) == miller_loop(p, q)
+    fs = [S.simulate_miller(S.mont(p[0].n), S.mont(p[1].n), (S.mont(q[0].a.n), S.mont(q[0].b.n)),
+                            (S.mont(q[1].a.n), S.mont(q[1].b.n))) for p, q in zip(ps, qs)]
+    millers = [miller_loop(p, q) for p, q in zip(ps, qs)]
+    for f, m in zip(fs, millers):
+        ratio = _oracle12(f) * m.inv()
+        assert ratio.c1.is_zero() and not ratio.c0.is_zero()
+    p_aff, q_aff = g1_to_device(ps, device="cpu")[:2], g2_to_device(qs, device="cpu")[:2]
+    assert _lanes(pm.miller_loop_plain(p_aff, q_aff)) == fs
     skipped = S.simulate_miller(1, 1, (1, 0), (1, 0), skip=True)
-    assert skipped == [S.mont(1)] + [0] * 11
-    lanes = S.simulate_final_exp(fs, product=False)
-    assert [_oracle12(e) for e in lanes] == [final_exponentiation(miller_loop(p, q))
-                                             for p, q in zip(ps, qs)]
+    one = [S.mont(1)] + [0] * 11
+    assert skipped == one
+    skip = torch.tensor([False, True])
+    cpu = pm.miller_loop_device(p_aff, q_aff, skip)
+    assert _lanes(cpu) == [fs[0], one]
+    want = [final_exponentiation(m) for m in millers]
+    lanes = S.simulate_final_exp(fs + [skipped], product=False)
+    assert [_oracle12(e) for e in lanes] == want + [Fp12.one()]
     prod = S.simulate_final_exp(fs + [fs[0]], skip=[False, False, True])
-    assert _oracle12(prod) == final_exponentiation(_oracle12(fs[0]) * _oracle12(fs[1]))
+    assert _oracle12(prod) == final_exponentiation(millers[0] * millers[1])
+    assert _lanes(pm.final_exp_product(cpu, skip)[..., None]) == [lanes[0]]
 
 
 # ---- constants and the header ------------------------------------------------------------
@@ -344,9 +415,8 @@ def test_schedule_stages_are_safe():
 
 def test_cpu_wrappers_never_load_the_kernels(monkeypatch):
     """On CPU tensors miller_loop_device, final_exp_device, final_exp_product
-    and pairing_check_device run the plain versions (stubbed here: they
-    take ~80 s a check) and never build or load the kernel library; skipped
-    lanes give Fp12 one."""
+    and pairing_check_device run the plain versions (stubbed here) and
+    never build or load the kernel library; skipped lanes give Fp12 one."""
     def refuse(*args, **kwargs):
         raise AssertionError("the kernel library was loaded for a CPU tensor")
 
@@ -437,10 +507,10 @@ def test_msm_small_on_digits_matches_jax(g2, n):
 
 def _simulated_miller(p_aff, q_aff):
     """The miller_loop kernel's program on Python integers, lane by lane."""
-    xp, yp = (_lanes(pm._fp_to_f12(t)) for t in p_aff)
-    xq, yq = (_lanes(pm._fp2_to_f12(t)) for t in q_aff)
-    return _words([S.simulate_miller(a[0], b[0], (c[0], c[1]), (d[0], d[1]))
-                   for a, b, c, d in zip(xp, yp, xq, yq)])
+    n = p_aff[0].shape[-1]
+    xp, yp, xq, yq = (_ints(t) for t in p_aff + q_aff)  # xq, yq: c0 of each lane, then c1
+    return _words([S.simulate_miller(xp[i], yp[i], (xq[i], xq[n + i]), (yq[i], yq[n + i]))
+                   for i in range(n)])
 
 
 def _simulated_final(f):
