@@ -321,13 +321,16 @@ class CurveOps:
     # ---- affine conversion ---------------------------------------------------------
 
     def to_affine(self, p):
-        """Batch normalise: returns (x, y, inf_mask)."""
+        """Batch normalise: returns (x, y, inf_mask). The Z inverses are one
+        `batch_inv` along the last batch axis, the leading batch axes its
+        rows (a batch of no axis is one row of one), so the scan's launches
+        follow the last axis's length alone, whatever the rows."""
         f = self.f
         x, y, z = p
         inf = self.is_inf(p)
         zsafe = torch.where(f.expand(inf), f.one(inf.shape, z.device), z)
-        flat = zsafe.reshape(zsafe.shape[:f.bdim] + (-1,))
-        zinv = f.batch_inv(flat).reshape(zsafe.shape)
+        rows = zsafe if inf.dim() else zsafe.unsqueeze(-1)
+        zinv = f.batch_inv(rows).reshape(zsafe.shape)
         zi2 = f.sqr(zinv)
         zi3 = f.mul(zinv, zi2)
         return (f.mul(x, zi2), f.mul(y, zi3), inf)

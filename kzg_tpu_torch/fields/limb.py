@@ -83,6 +83,7 @@ class LimbField:
         # -p^-1 mod 2^16 (the plain twin's digit) and mod 2^32 (the kernel's)
         self.nprime16 = (-pow(modulus, -1, 1 << 16)) % (1 << 16)
         self.nprime32 = (-pow(modulus, -1, 1 << 32)) % (1 << 32)
+        self._ones = {}  # device -> the Montgomery one, (W,)
 
     def as_plain(self) -> "LimbField":
         """This field with every ring op on the plain PyTorch twin of K1,
@@ -101,10 +102,18 @@ class LimbField:
                            device=resolve_device(device))
 
     def one(self, batch_shape=(), device=None) -> torch.Tensor:
-        """Montgomery one, broadcast to a batch shape (a contiguous copy),
-        on `device` (None: the configured default device)."""
-        col = self._col(self.one_mont_words, len(batch_shape), device)
-        return col.expand((self.W,) + tuple(batch_shape)).contiguous()
+        """Montgomery one, broadcast to a batch shape (a contiguous copy of
+        its own), on `device` (None: the configured default device). The
+        column is uploaded once a device: an upload from pageable host
+        memory waits for the device, and the group NTTs' ladder tables ask
+        for one at every stage."""
+        dev = resolve_device(device)
+        col = self._ones.get(dev)
+        if col is None:
+            col = self._ones[dev] = self._col(self.one_mont_words, 0, dev)
+        col = col.reshape((self.W,) + (1,) * len(batch_shape))
+        shape = (self.W,) + tuple(batch_shape)
+        return col.expand(shape).clone(memory_format=torch.contiguous_format)
 
     # ---- host converters -----------------------------------------------------
 

@@ -1,5 +1,6 @@
 """KZG protocol layer of the port: setup, the coefficient-form and the
-evaluation-form prover and verifier. Exports resolve lazily, as in `kzg_tpu/kzg/__init__.py`."""
+evaluation-form prover and verifier, and PeerDAS cell proofs (`das`).
+Exports resolve lazily, as in `kzg_tpu/kzg/__init__.py`."""
 
 _EXPORTS = {
     "KZGError": "errors",
@@ -23,6 +24,7 @@ _EXPORTS = {
     "compute_lagrange_basis_from_secret": "eval_form",
     "compute_lagrange_basis_and_polynomials": "eval_form",
     "lagrange_polynomials": "eval_form",
+    "DAS": "das",
 }
 
 __all__ = list(_EXPORTS)

@@ -4,7 +4,8 @@
   * the in-domain quotient `_div_by_omega_i` is fully vectorised: one batch
     inversion and elementwise multiplies (kernel K1);
   * the Lagrange SRS is computed in O(d log d) group work as an inverse NTT
-    over the SRS points (`_group_intt`): butterflies are point adds (K2),
+    over the SRS points (`_group_intt`, on `ntt.group.group_ntt`, the one
+    group NTT that FK20 also runs): butterflies are point adds (K2),
     twiddle multiplications are per-lane digit ladders
     (`CurveOps.scalar_mul_digits`: doublings on K2, table madds on K6), for
     G1 and for G2; when the setup secret is available (testing / csprng
@@ -32,9 +33,10 @@ from ..curve import G1, G2, g1_from_device, g1_to_device, g2_from_device, g2_to_
 from ..fields import FR
 from ..hostcrypto import multi_pairing_check
 from ..msm import msm_g1, msm_g2
-from ..msm.pippenger import _digits, _host_digits_msb, _std_digits_msb
+from ..msm.pippenger import _digits
 from ..ntt import Domain
 from ..ntt.domain import compute_omega
+from ..ntt.group import group_ntt
 from ..oracle import ec_add, ec_mul, ec_neg
 from .engines import verify_batched_device, verify_eval_device
 from .errors import PolynomialDegreeTooLarge
@@ -101,70 +103,16 @@ class KZGBatchWitnessEvalForm:
 
 
 def _group_intt(curve, points, dom: Domain, force_split: bool = False):
-    """Inverse NTT whose butterflies are point adds and whose twiddle
-    multiplications are per-lane scalar multiplications: O(d log d) group
-    ops. points: affine batch (x, y, inf) of length d on one device;
-    returns a Jacobian batch of length d.
-
-    Each stage splits the batch into halves a, b, forms u = a + b and
-    v = (a - b) * omega^-(j & ~(2^s - 1)) with the windowed digit ladder
-    (curve.scalar_mul_digits, config.group_ladder_window) and interleaves
-    u, v: the Pease layout of `Domain`, bit-reversed at the end. Small
-    domains read a dense MSB-first digit table of omega^-t; big domains
-    (exp >= ntt.domain._BIG_TABLE_EXP, or force_split) build each stage's
-    twiddle VALUES from two O(sqrt n) split tables, omega^-t =
-    HI[t >> sc] * LO[t & (2^sc - 1)], and extract the digit rows on the
-    device. The final scale by 1/d is one more ladder with a broadcast digit
-    column."""
+    """The Lagrange SRS's inverse group NTT: the affine batch (x, y, inf)
+    of length d on one device, lifted to Jacobian, through
+    `ntt.group.group_ntt` (inverse, scaled by 1/d). Returns a Jacobian
+    batch of length d."""
     d = dom.d
     dev = points[0].device
     f = curve.f
     zcoord = torch.where(f.expand(points[2]), f.zeros((d,), dev), f.one((d,), dev))
-    p = (points[0], points[1], zcoord)
-    if d == 1:
-        return p
-    h = d // 2
-    c = get_config().group_ladder_window
-    w_count = -(-255 // c)
-    jidx = torch.arange(h, device=dev)
-    if dom.split is None and not force_split:
-        # dense MSB-first digit table of omega^{-t}, t < h: (W, h)
-        tw_std = FR.from_mont(dom._table("tw_inv", dev))
-        digits_tbl = _std_digits_msb(tw_std, c, w_count)
-
-        def stage_digits(s):
-            return digits_tbl[:, jidx & ~((1 << s) - 1)]
-    else:
-        # split twiddle tables (Montgomery form), O(sqrt(h)) each
-        sc = max(1, (dom.exp - 1) // 2)
-        smask = (1 << sc) - 1
-        hi = torch.from_numpy(Domain._powers_step(dom.omega_inv, 1 << sc, h >> sc)).to(dev)
-        lo = torch.from_numpy(Domain._powers(dom.omega_inv, 1 << sc)).to(dev)
-
-        def stage_digits(s):
-            tv = jidx & ~((1 << s) - 1)
-            w_m = FR.mul(hi[:, tv >> sc], lo[:, tv & smask])
-            return _std_digits_msb(FR.from_mont(w_m), c, w_count)
-
-    for s in range(dom.exp):
-        a = tuple(t[..., :h] for t in p)
-        b = tuple(t[..., h:] for t in p)
-        u = curve.add(a, b)
-        v = curve.scalar_mul_digits(curve.add(a, curve.neg(b)), stage_digits(s), c)
-        p = tuple(
-            torch.stack([uu, vv], dim=-1).reshape(uu.shape[:-1] + (d,)) for uu, vv in zip(u, v)
-        )
-    if dom.split is None:
-        rev = dom._table("bitrev", dev)
-    else:
-        idx = torch.arange(d, device=dev)
-        rev = torch.zeros_like(idx)
-        for bit in range(dom.exp):
-            rev = rev | (((idx >> bit) & 1) << (dom.exp - 1 - bit))
-    p = tuple(torch.index_select(t, -1, rev) for t in p)
-    # scale by 1/d: scalar mul of every lane by the same constant
-    column = torch.tensor(_host_digits_msb(pow(d, -1, R), c), device=dev)[:, None]
-    return curve.scalar_mul_digits(p, column.expand(-1, d), c)
+    return group_ntt(curve, (points[0], points[1], zcoord), dom, inverse=True,
+                     force_split=force_split)
 
 
 def compute_lagrange_basis(params: KZGParams, exp: int) -> LagrangeSRS:

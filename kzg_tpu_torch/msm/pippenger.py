@@ -184,17 +184,29 @@ def weighted_bucket_sum(curve, buckets):
     return point_sum(curve, q)
 
 
-def _msm_small(curve, xa, ya, inf, scalars_std):
-    """Small batches: every point times its own scalar with one batched
-    digit ladder (`CurveOps.scalar_mul_digits` at c = SMALL_MSM_WINDOW over
-    all 256 bits of the words: a table of 2^c - 1 multiples, then one
-    ladder launch on a card), then a tree sum. The reference runs
-    `scalar_mul_bits` (`kzg_tpu/msm/pippenger.py:80-87`); the sum is the
-    same point."""
+def ladder_msm(curve, table, scalars_std):
+    """Independent small MSMs, one for every index of the leading batch
+    axes, each over the last axis: every lane's point times its own scalar
+    by one digit-ladder launch over all lanes of all MSMs (at c =
+    SMALL_MSM_WINDOW over all 256 bits of the words), then one pairwise
+    tree along the last axis (log2(n) K2 launches, whatever the number of
+    MSMs). `table` is the points' `CurveOps.ladder_table` at that window,
+    (tx, ty, p_inf) over the lanes (*lead, n), so a caller whose points
+    are fixed builds it once; scalars are (8, *lead, n) standard-form
+    words. Returns the Jacobian sums, batch *lead."""
     c = SMALL_MSM_WINDOW
     digits = _std_digits_msb(scalars_std, c, -(-32 * FR.W // c))
+    return point_sum(curve, curve.ladder_rounds(*table, digits, c))
+
+
+def _msm_small(curve, xa, ya, inf, scalars_std):
+    """Small batches: every point times its own scalar with one batched
+    digit ladder (`CurveOps.scalar_mul_digits`: a table of 2^c - 1
+    multiples, then one ladder launch on a card), then a tree sum
+    (`ladder_msm`). The reference runs `scalar_mul_bits`
+    (`kzg_tpu/msm/pippenger.py:80-87`); the sum is the same point."""
     base = curve.select(inf, curve.infinity(inf.shape, xa.device), curve.from_affine(xa, ya))
-    return point_sum(curve, curve.scalar_mul_digits(base, digits, c))
+    return ladder_msm(curve, curve.ladder_table(base, SMALL_MSM_WINDOW), scalars_std)
 
 
 def bucket_inputs(xa, ya, inf, scalars_std, c: int):

@@ -40,6 +40,12 @@ SPANS = (
     "pairing.miller_loop",  # breakdown: the `miller_loop` kernel's wrapper and launch
     "pairing.final_exp",    # breakdown: the `final_exp` kernel's wrapper and launch
     "pairing.read",         # breakdown: `f12_is_one` and the verdict's read
+    "das.prove",            # das.idle_ms, das.syncs: `DAS.compute_cells_and_kzg_proofs`
+    "das.cells",            # breakdown: the blobs' iNTT and the odd coset's NTT (`kzg/das.py`)
+    "das.fk20.columns",     # breakdown: FK20's scalar NTTs of the blobs' columns
+    "das.fk20.msm",         # breakdown: FK20's MSMs on the fixed table (`ladder_msm`)
+    "das.fk20.g1_fft",      # breakdown: FK20's inverse and forward group NTTs
+    "das.verify",           # breakdown: `DAS.verify_cell_kzg_proof_batch`
 )
 
 _OFF = contextlib.nullcontext()

@@ -1342,3 +1342,96 @@ def test_sharded_steps_world_one(dev, nccl_mesh):
         assert torch.equal(y, evals[:, m:m + 1])
         assert _affine(commit) == _affine(eprover.commit(evals))
         assert _affine(wit) == _affine(eprover.create_witness(evals, m))
+
+
+# ---- PeerDAS cells and FK20 proofs (kzg/das.py) at the published widths --------------------
+
+DAS_SECRET = 0x5EED_DA5
+
+
+@pytest.fixture(scope="module")
+def das_card():
+    """The cell prover over an SRS of 4096 G1 and 65 G2 powers on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from kzg_tpu_torch.kzg.das import DAS
+    from kzg_tpu_torch.kzg.srs import setup_device
+
+    params = setup_device(DAS_SECRET, 4096, g2_count=65, device=torch.device("cuda", 0))
+    return DAS(params)
+
+
+def _das_blobs(seed, count, dev):
+    """count blobs of 4096 field elements (host ints) and their (8, B, 4096) words."""
+    rs = np.random.default_rng(seed)
+    values = [[int.from_bytes(rs.bytes(32), "little") % R for _ in range(4096)]
+              for _ in range(count)]
+    return values, torch.from_numpy(FR.encode(sum(values, []))).reshape(8, count, 4096).to(dev)
+
+
+def test_das_one_blob_equals_the_reference(dev, das_card):
+    """One full blob: its 128 cells and 128 proofs equal the plain
+    reference's (the spec's FFTs; ((f(s) - I_k(s)) / (s^64 - h_k^64)) G),
+    byte for byte."""
+    from kzg_tpu_torch.compat.serialize import g1_compress
+    from kzgbench.reference import das as ref
+    from kzgbench.reference.bls import g1_compress as ref_compress
+
+    values, blobs = _das_blobs(70, 1, dev)
+    cells, proofs = das_card.compute_cells_and_kzg_proofs(blobs)
+    ext, q = ref.Cells(DAS_SECRET, 4096, 64).blob(values[0])
+    assert torch.equal(cells[:, 0].cpu(), ref.mont_words(ext, "cpu").reshape(8, 128, 64))
+    g = ref.FixedBase()
+    got = [g1_compress(p) for p in g1_from_device(tuple(t[:, 0] for t in proofs))]
+    assert got == [ref_compress(g.mul(k)) for k in q]
+    assert torch.equal(das_card.compute_cells(blobs), cells)
+
+
+def test_das_launches_do_not_grow_with_the_blobs(dev, das_card):
+    """A call on 9 blobs launches the same kernels, as many times, as a call
+    on one; its first blob's outputs equal the one-blob call's."""
+    _, blobs = _das_blobs(71, 9, dev)
+    das_card.compute_cells_and_kzg_proofs(blobs[:, :1])  # the table, built once
+    counts = []
+    outs = []
+    for b in (blobs[:, :1], blobs):
+        kernels.reset_launches()
+        outs.append(das_card.compute_cells_and_kzg_proofs(b.contiguous()))
+        torch.cuda.synchronize()
+        counts.append(kernels.launch_counts())
+    assert counts[0] == counts[1] and sum(counts[0].values()) > 0
+    (c1, p1), (c9, p9) = outs
+    assert torch.equal(c1[:, 0], c9[:, 0])
+    assert all(torch.equal(a[:, 0], b[:, 0]) for a, b in zip(p1, p9))
+
+
+def test_das_verify_on_the_card(dev, das_card, monkeypatch):
+    """verify_cell_kzg_proof_batch on the device engine accepts one blob's
+    128 cells (shuffled) and one 9-cell column of a block, and rejects each
+    with one cell value + 1."""
+    from kzg_tpu_torch.msm import msm_g1
+
+    monkeypatch.setattr(config, "_config",
+                        dataclasses.replace(config.get_config(), pairing_engine="device"))
+
+    _, blobs = _das_blobs(72, 9, dev)
+    cells, proofs = das_card.compute_cells_and_kzg_proofs(blobs)
+    coeffs, _ = das_card._extend(blobs)
+    gs = das_card.params.gs
+    coms = [msm_g1(gs, coeffs[:, b].contiguous()) for b in range(9)]
+
+    def stack(points):
+        return tuple(torch.stack([p[i] for p in points], dim=-1) for i in range(3))
+
+    def bump(c, lane):
+        c = c.clone()
+        c[:, lane, 7:8] = FR.add(c[:, lane, 7:8], FR.one((1,), dev))
+        return c
+
+    order = torch.randperm(128, generator=torch.Generator().manual_seed(3)).tolist()
+    one = (stack([coms[0]] * 128), order, cells[:, 0, order].contiguous(),
+           tuple(t[:, 0, order] for t in proofs))
+    col = (stack(coms), [5] * 9, cells[:, :, 5].contiguous(), tuple(t[:, :, 5] for t in proofs))
+    for com, idx, c, p in (one, col):
+        assert das_card.verify_cell_kzg_proof_batch(com, idx, c, p)
+        assert not das_card.verify_cell_kzg_proof_batch(com, idx, bump(c, 3), p)

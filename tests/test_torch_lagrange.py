@@ -38,6 +38,7 @@ from kzg_tpu_torch.kzg import (
     setup,
 )
 from kzg_tpu_torch.kzg import eval_form as ef
+from kzg_tpu_torch.msm import pippenger
 from kzg_tpu_torch.ntt import Domain
 from kzg_tpu_torch.oracle import ec_mul, g1_generator, g2_generator
 
@@ -69,12 +70,12 @@ def _scalars(seed, n):
 def test_std_digits_msb_match_jax_and_host(c):
     scal = _scalars(c, 21)
     w_count = -(-255 // c)
-    got = ef._std_digits_msb(torch.from_numpy(FR.from_ints(scal)), c, w_count)
+    got = pippenger._std_digits_msb(torch.from_numpy(FR.from_ints(scal)), c, w_count)
     want = jef._std_digits_msb(jnp.asarray(JFR.from_ints(scal)), c, w_count, (1 << c) - 1)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert got.shape == (w_count, 21)
     for k, col in zip(scal, got.T.tolist()):
-        assert col == ef._host_digits_msb(k, c) == jef._host_digits_msb(k, c)
+        assert col == pippenger._host_digits_msb(k, c) == jef._host_digits_msb(k, c)
         assert sum(d << (c * (w_count - 1 - w)) for w, d in enumerate(col)) == k
 
 
