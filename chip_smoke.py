@@ -75,6 +75,9 @@ non-zero before the result line:
                 infinite, one with all-zero digits) and at its edge cases
                 (`bench.ladder.EDGE_DIGITS`: P == Q, P == -Q, infinity + Q;
                 also against the oracle), timed also at 2^12 and 2^14 lanes;
+                the fixed-base comb `fk20_comb` at its edge cases (0, 1,
+                r - 1, every digit 15, P == -Q, P == Q, an infinite point;
+                also against the oracle) and at FK20's 73,728 lanes;
                 K9 mxu_reduce on the digit sums of a real 128-point DFT product
                 at 2^15 lanes and on the largest legal digit sums, timed on
                 the (64, 2^20) digit array of a 2^20 NTT's first pass, with
@@ -650,6 +653,7 @@ def main(argv=None) -> int:
         return sharded_rank(args.sharded_rank, args.x)
 
     from kzg_tpu_torch import kernels, native
+    from kzg_tpu_torch.bench import comb as cbench
     from kzg_tpu_torch.bench import field_body as fbench
     from kzg_tpu_torch.bench import horner as hbench
     from kzg_tpu_torch.bench import ladder as lbench
@@ -676,7 +680,7 @@ def main(argv=None) -> int:
     from kzg_tpu_torch.msm import msm_g1, msm_g2, pippenger
     from kzg_tpu_torch.ntt import Domain, mxu
     from kzg_tpu_torch.ntt import domain as ntt_domain
-    from kzg_tpu_torch.oracle import ec_add, ec_neg, g1_generator, g2_generator
+    from kzg_tpu_torch.oracle import ec_add, ec_mul, ec_neg, g1_generator, g2_generator
     from kzg_tpu_torch.oracle import pairing as oracle_pairing
     from kzg_tpu_torch.pairing import pairing as pairing_mod
     from kzg_tpu_torch.pairing import pairing_device, tower
@@ -1673,6 +1677,45 @@ def main(argv=None) -> int:
                 f"{1 << (EXP_LAGRANGE - 1)}; plain {plain_ms:.2f} ms [{card}]")
             del tab, tab_t
 
+        # the fixed-base comb (FK20's MSM): its edge cases against the twin
+        # and the oracle on a table made on the card, then FK20's shape
+        # (73,728 lanes over 8,192 points) on a random table against the twin
+        base_c, pts_c, sc_c = cbench.edge_case(dev)
+        table_c = pippenger.comb_table(base_c)
+        got = cuda_ops.fk20_comb(*table_c, sc_c)
+        e_err = max_abs_diff(got, cuda_ops.fk20_comb_plain(*table_c, sc_c))
+        ks = [int(v) for v in cbench.EDGE_SCALARS.values()]
+        want = [None if pt is None or k % R == 0 else ec_mul(pt, k % R)
+                for k in ks for pt in pts_c]
+        check(e_err == 0 and g1_from_device(tuple(
+            t[:, :len(ks)].reshape(12, -1) for t in got)) == want,
+            "g1_fk20_comb edge cases (0, 1, r - 1, all digits 15, P == -Q, P == Q, an "
+            "infinite point) equal plain and the oracle")
+        gen_c = torch.Generator(device=dev).manual_seed(SEED + 21)
+        rows_c, inf_c = cbench.random_comb(cbench.FREQS * cbench.COLS, gen_c)
+        sc_c = cbench.random_scalars((cbench.BLOBS, cbench.FREQS, cbench.COLS), gen_c)
+        got = cuda_ops.fk20_comb(rows_c, inf_c, sc_c)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = cuda_ops.fk20_comb_plain(rows_c, inf_c, sc_c)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max_abs_diff(got, want)
+        lanes_c = sc_c[0].numel()
+        check(err == 0, f"g1_fk20_comb {lanes_c} lanes over {rows_c.shape[1]} points equals plain")
+        words_c = sc_c.to(torch.int64) & 0xFFFFFFFF
+        live = int(sum(((words_c >> (4 * k)) & 15).ne(0).sum() for k in range(8)))
+        muls = live * POINT_MULS["madd"][0]
+        kinfo["g1_fk20_comb"].update(
+            max_abs_err=max(err, e_err), plain_ms=plain_ms, muls=muls, lanes=lanes_c,
+            ms=cuda_ms(lambda: cuda_ops.fk20_comb(rows_c, inf_c, sc_c), 5),
+            bound=bound(96 * live + (32 + 144) * lanes_c, muls * FP_MUL_MADS))
+        log(f"  g1_fk20_comb at {lanes_c} lanes ({live} madds): kernel "
+            f"{kinfo['g1_fk20_comb']['ms']:.4f} ms, plain {plain_ms:.2f} ms, bound "
+            f"{kinfo['g1_fk20_comb']['bound'][0]:.6f} ms ({kinfo['g1_fk20_comb']['bound'][1]}) "
+            f"[{card}]")
+        del rows_c, inf_c, sc_c, table_c, got, want
+
         lanes8 = 1 << 19
         a = peaks.random_elements(FP, lanes8, gen8)
         b = peaks.random_elements(FP, lanes8, gen8)
@@ -2111,10 +2154,11 @@ def main(argv=None) -> int:
             # runs inside the ladder kernel; the evaluation form divides in
             # evaluation form, without fr_horner; its transforms take ntt_block,
             # never the per-stage K5; its verifiers pair on the host engine
-            # (the pairing kernels run under pairing_engine="device", phase 24)
+            # (the pairing kernels run under pairing_engine="device", phase 24);
+            # the comb runs only FK20's MSM (kzg/das.py)
             check(n_launch > 0 or k in ("g1_bucket_accumulate", "mul_chain", "mxu_reduce",
                                         "g1_madd", "g2_madd", "fr_horner", "ntt_stage",
-                                        "miller_loop", "final_exp"),
+                                        "miller_loop", "final_exp", "g1_fk20_comb"),
                   f"{k} launched {n_launch} times on the G2 MSM and evaluation-form path")
         check(counts_eval["ntt_stage"] == 0,
               "the evaluation-form path transforms on ntt_block, no per-stage K5 launch")

@@ -109,6 +109,15 @@ Pallas `dbl` / `madd` launches of `kzg_tpu/curve/ops.py:316-374`
 (`pallas_ops.py:707,270`). Bound: each lane's chain of W (c + 1) dependent
 point operations, and all lanes' products at the card's multiply rate.
 
+The fixed-base comb (`fk20_comb`, counted as `g1_fk20_comb`,
+`csrc/fk20_comb_kernels.cu`) multiplies points that are fixed once and for
+all (FK20's, `kzg/das.py`) by scalars that change: one thread a lane, one
+one-thread madd (K3's body) a non-zero 4-bit digit with the entry
+d 2^(4 w) P of a table made once for the points
+(`msm.pippenger.comb_table`), and no doubling. On that path it takes the
+ladder's place; the ladder stays for points that change a call. Bound: the
+lanes' madds at the one-thread product rate.
+
 Each wrapper takes the plain twin for CPU tensors and launches its kernel
 for CUDA tensors; `*_plain` are the twins, usable on any device.
 """
@@ -638,3 +647,68 @@ def ladder(tx, ty, p_inf, digits, c: int):
     kernels.check_status(rc, what)
     group.counter("ladder").launches += 1
     return tuple(o.reshape(group.lead + batch) for o in out)
+
+
+# ---- the fixed-base comb ----------------------------------------------------------------
+
+COMB_WINDOW = 4                         # bits a digit
+COMB_WINDOWS = 256 // COMB_WINDOW       # digits of a 256-bit scalar
+COMB_ENTRIES = (1 << COMB_WINDOW) - 1   # the digits 1 .. 15
+
+
+def fk20_comb_plain(rows, p_inf, scalars_std):
+    """Plain twin of the comb kernel: per lane, from infinity, MSB window
+    first, one `madd` of table entry (w, p, d_w - 1), skipped where the
+    digit is 0 or the point is infinite; lane i (flat) takes point i mod P."""
+    n_pts = rows.shape[1]
+    batch = tuple(scalars_std.shape[1:])
+    words = scalars_std.to(torch.int64) & 0xFFFFFFFF
+    point = (torch.arange(math.prod(batch), device=rows.device) % n_pts).reshape(batch)
+    per_word = 32 // COMB_WINDOW
+    inf = p_inf[point]
+    acc = PLAIN.infinity(batch, rows.device)
+    for w in range(COMB_WINDOWS - 1, -1, -1):
+        d = (words[w // per_word] >> (COMB_WINDOW * (w % per_word))) & COMB_ENTRIES
+        entry = rows[w][point, (d - 1).clamp(min=0)]  # (*batch, 24)
+        x, y = (entry[..., k * _W:(k + 1) * _W].movedim(-1, 0).contiguous() for k in range(2))
+        acc = PLAIN.madd(acc, (x, y), (d == 0) | inf)
+    return acc
+
+
+def fk20_comb(rows, p_inf, scalars_std):
+    """The comb's products in one launch (counted as `g1_fk20_comb`): lane
+    i (flat, C order) is point i mod P times its scalar, one mixed addition
+    a non-zero digit and no doubling, from the table
+    `msm.pippenger.comb_table` makes once for the points.
+
+    rows:        (64, P, 15, 24) int32, entry (w, p, d - 1) the affine
+                 d 2^(4 w) P_p, x words then y words;
+    p_inf:       (P,) bool, the points that are infinite;
+    scalars_std: (8, *batch) standard-form words, prod(batch) a multiple
+                 of P (the trailing batch axes hold the points).
+    Returns the Jacobian (X, Y, Z), 3 x (12, *batch)."""
+    if _is_cpu(rows):
+        return fk20_comb_plain(rows, p_inf, scalars_std)
+    what = "g1_fk20_comb"
+    dev = rows.device
+    n_pts = rows.shape[1]
+    batch = tuple(scalars_std.shape[1:])
+    shape = (COMB_WINDOWS, n_pts, COMB_ENTRIES, 2 * _W)
+    if (rows.dtype != torch.int32 or tuple(rows.shape) != shape or not n_pts
+            or p_inf.dtype != torch.bool or tuple(p_inf.shape) != (n_pts,)
+            or scalars_std.dtype != torch.int32 or scalars_std.shape[0] != 8
+            or math.prod(batch) % n_pts or p_inf.device != dev or scalars_std.device != dev):
+        raise kernels.KernelError(
+            f"{what}: expected int32 rows {shape[:1]} + (P,) + {shape[2:]}, bool p_inf (P,) "
+            f"and int32 scalars (8, ...) of a multiple of P lanes on {dev}, got "
+            f"{tuple(rows.shape)}, {tuple(p_inf.shape)}, {tuple(scalars_std.shape)}")
+    n = math.prod(batch)
+    out = [torch.empty((_W, n), dtype=torch.int32, device=dev) for _ in range(3)]
+    if n:
+        ins = (rows.contiguous(), p_inf.contiguous().view(torch.uint8),
+               scalars_std.reshape(8, n).contiguous())
+        rc = _G1K.entry("fk20_comb")(*_ptrs(out), *_ptrs(ins), n_pts, n,
+                                     kernels.stream_handle(dev))
+        kernels.check_status(rc, what)
+        _G1K.counter("fk20_comb").launches += 1
+    return tuple(o.reshape((_W,) + batch) for o in out)

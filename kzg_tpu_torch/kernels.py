@@ -39,7 +39,8 @@ BUILD_ROOT = _PKG.parent / "build" / "kzg_tpu_torch"
 SOURCES = ("field_kernels.cu", "point_kernels.cu", "ntt_kernels.cu",
            "point_g2_kernels.cu", "madd_multi_g2_kernels.cu",
            "msm_g2_kernels.cu", "horner_g2_kernels.cu", "mxu_kernels.cu", "ladder_kernels.cu",
-           "pointwise_g2_kernels.cu", "scan_kernels.cu", "pairing_kernels.cu")
+           "pointwise_g2_kernels.cu", "scan_kernels.cu", "pairing_kernels.cu",
+           "fk20_comb_kernels.cu")
 HEADERS = ("field.cuh", "point.cuh", "coop.cuh", "horner.cuh", "horner_schedule.cuh",
            "pair.cuh", "ladder.cuh", "pointwise.cuh", "madd_multi.cuh", "scan.cuh",
            "ntt_block.cuh", "pairing.cuh", "pairing_schedule.cuh")
@@ -135,6 +136,10 @@ REGISTRY = {
                "kzg_tpu/curve/pallas_ops.py:707"),
         Kernel("g2_ladder", "kzg_tpu_torch/csrc/ladder_kernels.cu",
                "kzg_tpu/curve/pallas_ops.py:707"),
+        # FK20's products on its fixed points: one madd a digit from a table
+        # of window multiples, in place of the ladder's rounds on that path
+        Kernel("g1_fk20_comb", "kzg_tpu_torch/csrc/fk20_comb_kernels.cu",
+               "kzg_tpu/curve/pallas_ops.py:270"),
         # the rounds of K1 launches of _prefix_scan / sum_last, a few tile passes
         Kernel("field_scan", "kzg_tpu_torch/csrc/scan_kernels.cu",
                "kzg_tpu/fields/pallas_field.py:295"),
@@ -279,6 +284,8 @@ _SIGNATURES = {
     # (ox, oy, oz, table x, table y, digits, p_inf bytes, windows, c, entries, lanes, stream)
     "kzg_g1_ladder": (_P,) * 7 + (_I, _I, _I, _N, _P),
     "kzg_g2_ladder": (_P,) * 7 + (_I, _I, _I, _N, _P),
+    # (ox, oy, oz, table, p_inf bytes, scalar words, points, lanes, stream)
+    "kzg_g1_fk20_comb": (_P,) * 6 + (_N, _N, _P),
     # (field, op, out, in, word / row / element strides, totals, carry, n, rows, reverse, stream)
     "kzg_field_scan": (_I, _I, _P, _P, _N, _N, _N, _P, _P, _N, _I, _I, _P),
     # (q, rem, totals, xpow, f, f word / row strides, x, carry in, tile carry, n, k, stream)

@@ -32,13 +32,16 @@ m < i < 2m and infinity elsewhere, whose entries u < m - 1 are the terms
 of h_u. So
 
   * once an SRS (`DAS.fk20_table`): the forward group NTTs of the l vectors
-    B_j, times 1/(2m), and the digit-ladder table of those 2n fixed points
-    (what `msm.pippenger.ladder_msm` reads);
+    B_j, times 1/(2m), and the comb table of those 2n fixed points
+    (`msm.pippenger.comb_table`: the affine d 2^(4 w) P for the 64 4-bit
+    windows w and the digits d = 1 .. 15, 2n x 960 entries of 96 bytes,
+    755 MB at the spec's sizes);
   * per call, over all blobs at once (`compute_cells_and_kzg_proofs`): the
     scalar NTTs of size 2m of every blob's l columns (one `ntt_block`
     launch); the 2m MSMs of l terms a blob, one a frequency, on the fixed
-    table (one ladder launch over 2n lanes a blob, then a tree of log2(l)
-    K2 launches); one inverse group NTT of size 2m (the 1/(2m) is in the
+    table (one comb launch over 2n lanes a blob, a mixed addition a
+    non-zero digit and no doubling, then a tree of log2(l) K2 launches);
+    one inverse group NTT of size 2m (the 1/(2m) is in the
     table), whose entries from m - 1 on are set to infinity; and one
     forward group NTT of size 2m left in its stages' bit-reversed order,
     which is the cells' order, since h_k^l = omega_2m^rev(k).
@@ -66,11 +69,11 @@ import torch
 from ..compat.serialize import g1_compress
 from ..config import get_config
 from ..constants import R
-from ..curve import G1, G2, g1_from_device, g2_from_device
+from ..curve import G1, G2, cuda_ops, g1_from_device, g2_from_device
 from ..fields import FR
 from ..fields.cuda_field import bitrev_perm
 from ..hostcrypto import multi_pairing_check
-from ..msm.pippenger import SMALL_MSM_WINDOW, ladder_msm
+from ..msm.pippenger import SMALL_MSM_WINDOW, comb_table, ladder_msm, point_sum
 from ..ntt import Domain
 from ..ntt.domain import compute_omega
 from ..ntt.group import group_ntt, scale_points
@@ -127,9 +130,9 @@ class DAS:
 
     @functools.cached_property
     def fk20_table(self):
-        """The ladder table (tx, ty, p_inf) of the 2n points NTT(B_j)[k] /
-        (2m), lanes (2m, l): frequency k, column j. Built at its first use
-        and kept: a verifier never builds it."""
+        """The comb table (rows, p_inf) of the 2n points NTT(B_j)[k] / (2m),
+        point k l + j for frequency k and column j (`comb_table`). Built at
+        its first use and kept: a verifier never builds it."""
         l, c2 = self.l, self.cells
         dev = self.device
         i = torch.arange(c2, device=dev)
@@ -141,8 +144,7 @@ class DAS:
         pts = G1.select(inf, G1.infinity(inf.shape, dev), G1.from_affine(gx, gy))
         pts = tuple(t.reshape(t.shape[:-1] + (l, c2)) for t in pts)
         table = scale_points(G1, group_ntt(G1, pts, self.dom_c), pow(c2, -1, R))
-        table = tuple(t.transpose(-1, -2).contiguous() for t in table)
-        return G1.ladder_table(table, SMALL_MSM_WINDOW)
+        return comb_table(tuple(t.transpose(-1, -2).reshape(-1, l * c2) for t in table))
 
     # ---- the spec's calls ------------------------------------------------------------
 
@@ -182,13 +184,7 @@ class DAS:
             a_hat = self.dom_c.ntt(torch.cat([cols, torch.zeros_like(cols)], dim=-1))
             scalars = FR.from_mont(a_hat.transpose(-1, -2).contiguous())  # (8, B, 2m, l)
         with span("das.fk20.msm"):
-            tx, ty, p_inf = self.fk20_table
-            lanes = lead + tuple(p_inf.shape)
-
-            def rows(t):
-                return t.unsqueeze(2).expand(t.shape[:2] + lanes)
-
-            h_hat = ladder_msm(G1, (rows(tx), rows(ty), p_inf.expand(lanes)), scalars)
+            h_hat = point_sum(G1, cuda_ops.fk20_comb(*self.fk20_table, scalars))
         with span("das.fk20.g1_fft"):
             h = group_ntt(G1, h_hat, self.dom_c, inverse=True, scale=False)
             h = G1.select(self._keep, h, G1.infinity(h[0].shape[1:], h[0].device))

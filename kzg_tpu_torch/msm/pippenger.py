@@ -41,7 +41,11 @@ Deviations from the reference:
 Below small_msm_threshold points every point is multiplied by its own
 scalar with the batched digit ladder (a table on K2, the rounds in one
 ladder launch) and the products summed by a tree on K2 (`_msm_small`); the
-reference runs a double-and-add ladder there, the same point. Above
+reference runs a double-and-add ladder there, the same point. Points fixed
+once and for all (FK20's, `kzg/das.py`) take the comb instead: a table of
+each point's window multiples, made once (`comb_table`), and one comb
+launch of mixed additions a call (`cuda_ops.fk20_comb`), no doubling, then
+the same tree sum. Above
 2^msm_chunk_log points an MSM runs as one MSM a chunk of 2^msm_chunk_log
 points, each with its own window, the Jacobian partials summed by K2
 `add` (the reference's `:818-833`): the digits, sort and row table are one
@@ -197,6 +201,27 @@ def ladder_msm(curve, table, scalars_std):
     c = SMALL_MSM_WINDOW
     digits = _std_digits_msb(scalars_std, c, -(-32 * FR.W // c))
     return point_sum(curve, curve.ladder_rounds(*table, digits, c))
+
+
+def comb_table(base):
+    """The fixed-base comb's table of a batch of G1 points (`base`, Jacobian,
+    batch (P,)), made once for points that stay: (rows, p_inf), rows
+    (64, P, 15, 24) int32 with entry (w, p, d - 1) the affine d 2^(4 w) P_p,
+    x words then y words (`cuda_ops.fk20_comb`), and p_inf (P,) bool. The
+    bases 2^(4 w) P of the 64 windows come by 4 doublings a window (252 K2
+    launches over the P points), their 15 multiples by `ladder_table`'s
+    doubling blocks over all 64 P at once, then one `to_affine`."""
+    c = cuda_ops.COMB_WINDOW
+    bases = [base]
+    for _ in range(cuda_ops.COMB_WINDOWS - 1):
+        q = bases[-1]
+        for _ in range(c):
+            q = G1.dbl(q)
+        bases.append(q)
+    tx, ty, p_inf = G1.ladder_table(
+        tuple(torch.stack([q[i] for q in bases], dim=-2) for i in range(3)), c)
+    rows = torch.cat([tx, ty]).permute(2, 3, 1, 0).contiguous()  # (W, P, T, 24)
+    return rows, p_inf[0]
 
 
 def _msm_small(curve, xa, ya, inf, scalars_std):

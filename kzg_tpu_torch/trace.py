@@ -43,7 +43,7 @@ SPANS = (
     "das.prove",            # das.idle_ms, das.syncs: `DAS.compute_cells_and_kzg_proofs`
     "das.cells",            # breakdown: the blobs' iNTT and the odd coset's NTT (`kzg/das.py`)
     "das.fk20.columns",     # breakdown: FK20's scalar NTTs of the blobs' columns
-    "das.fk20.msm",         # breakdown: FK20's MSMs on the fixed table (`ladder_msm`)
+    "das.fk20.msm",         # breakdown: FK20's MSMs on the fixed table (`fk20_comb`)
     "das.fk20.g1_fft",      # breakdown: FK20's inverse and forward group NTTs
     "das.verify",           # breakdown: `DAS.verify_cell_kzg_proof_batch`
 )

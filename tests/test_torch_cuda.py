@@ -22,7 +22,8 @@ engine against the host engine; the pairing kernels (`miller_loop`,
 `final_exp` in lane and product mode) against their plain versions at 1,
 2 and 5 lanes with a lane at infinity, their refusal to fall back, the
 small MSM on the digit ladder at 1, 3 and 17 points, and the launches of
-a device verify. The sharded layer at world 1 on NCCL in
+a device verify; the fixed-base comb `fk20_comb` at FK20's shape and at
+its edge cases. The sharded layer at world 1 on NCCL in
 this process (`kzg_tpu_torch.parallel`): every sharded transform against
 `Domain`, the sharded G1 and G2 MSMs against `msm`, and the three steps
 against the one-device provers, at 2^10.
@@ -1400,6 +1401,7 @@ def test_das_launches_do_not_grow_with_the_blobs(dev, das_card):
         torch.cuda.synchronize()
         counts.append(kernels.launch_counts())
     assert counts[0] == counts[1] and sum(counts[0].values()) > 0
+    assert counts[0]["g1_fk20_comb"] == 1
     (c1, p1), (c9, p9) = outs
     assert torch.equal(c1[:, 0], c9[:, 0])
     assert all(torch.equal(a[:, 0], b[:, 0]) for a, b in zip(p1, p9))
@@ -1435,3 +1437,50 @@ def test_das_verify_on_the_card(dev, das_card, monkeypatch):
     for com, idx, c, p in (one, col):
         assert das_card.verify_cell_kzg_proof_batch(com, idx, c, p)
         assert not das_card.verify_cell_kzg_proof_batch(com, idx, bump(c, 3), p)
+
+
+# ---- the fixed-base comb (FK20's MSM) -------------------------------------------------------
+
+
+def test_fk20_comb_at_fk20s_shape(dev, das_card):
+    """The comb kernel on the prover's own table (8,192 points) over 9 x 128
+    x 64 lanes of random scalars equals its twin word for word, in one
+    launch."""
+    from kzg_tpu_torch.bench import comb as cbench
+
+    rows, p_inf = das_card.fk20_table
+    assert rows.shape == (64, 8192, 15, 24) and rows.numel() * 4 <= 800e6
+    gen = torch.Generator(device=dev).manual_seed(21)
+    scalars = cbench.random_scalars((9, 128, 64), gen)
+    kernels.reset_launches()
+    got = cuda_ops.fk20_comb(rows, p_inf, scalars)
+    assert kernels.launch_counts()["g1_fk20_comb"] == 1
+    assert _equal(got, cuda_ops.fk20_comb_plain(rows, p_inf, scalars))
+
+
+def test_fk20_comb_edge_cases(dev):
+    """A comb table made on the card (K2) from four points at random Z, the
+    last infinite: the kernel equals its twin word for word on the scalars
+    of `bench.comb.EDGE_SCALARS` (P == Q and P == -Q at the last window
+    among them) and random ones, and the ladder's products and the oracle
+    in affine form."""
+    from kzg_tpu_torch.bench import comb as cbench
+    from kzg_tpu_torch.oracle import ec_mul
+
+    base, pts, scalars = cbench.edge_case(dev)
+    table = pippenger.comb_table(base)
+    got = cuda_ops.fk20_comb(*table, scalars)
+    assert _equal(got, cuda_ops.fk20_comb_plain(*table, scalars))
+    shape = tuple(scalars.shape[1:])
+    tx, ty, p_inf = G1.ladder_table(base, 4)
+    digits = pippenger._std_digits_msb(scalars.reshape(8, -1), 4, 64).reshape((64,) + shape)
+    ladder = cuda_ops.ladder(tx.unsqueeze(2).expand(tx.shape[:2] + shape),
+                             ty.unsqueeze(2).expand(ty.shape[:2] + shape), p_inf.expand(shape),
+                             digits, 4)
+    assert g1_from_device(tuple(t.reshape(12, -1) for t in got)) == g1_from_device(
+        tuple(t.reshape(12, -1) for t in ladder))
+    words = scalars.reshape(8, -1).cpu().to(torch.int64) & 0xFFFFFFFF
+    ks = [sum(int(words[k, i]) << (32 * k) for k in range(8)) for i in range(words.shape[1])]
+    want = [None if pts[i % 4] is None or k % R == 0 else ec_mul(pts[i % 4], k % R)
+            for i, k in enumerate(ks)]
+    assert g1_from_device(tuple(t.reshape(12, -1) for t in got)) == want

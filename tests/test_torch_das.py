@@ -11,9 +11,10 @@ seed's blob in a call of its own, which equals its blob of the batched
 call. The cells also equal the
 spec's literal `compute_cells` (every value by Horner).
 
-On the plain twins FK20's set-up takes ~50 s and a call ~75 s whatever
-the number of blobs (the ladders' twins are overhead-bound), so the file
-makes the set-up once and three calls.
+On the plain twins FK20's set-up takes ~80 s (the group NTTs ~45 s, the
+comb table ~35 s) and a call ~75 s whatever the number of blobs (the
+twins are overhead-bound), so the file makes the set-up once and three
+calls.
 """
 
 import random
